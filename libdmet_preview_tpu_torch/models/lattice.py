@@ -1,0 +1,299 @@
+"""
+Lattice geometry and the model-lattice container (PyTorch port of
+libdmet_preview_tpu/models/lattice.py).
+
+Everything here is host NumPy computed once per lattice: geometry, index
+maps, and the stripe operators with their k-space (re, im) pairs.  The
+fused iteration (ops/fastpath.py) moves what it needs to its device.
+
+Conventions (match the JAX package):
+  H(k) = sum_R e^{-i k.R} H(R)
+  A(R) = (1/Nk) sum_k e^{+i k.R} A(k)
+Stripe block meaning: A[R] = <R q| A |0 p> with row index in cell R.
+"""
+
+import itertools as it
+import numpy as np
+
+from libdmet_preview_tpu_torch.utils import logger as log
+from libdmet_preview_tpu_torch.ops import fourier
+
+
+class UnitCell(object):
+    """Unit cell: lattice vectors (dim x dim) + fractional site positions."""
+
+    def __init__(self, size, sites):
+        self.size = np.array(size, dtype=float)
+        log.eassert(self.size.shape[0] == self.size.shape[1],
+                    "Invalid unitcell constants")
+        self.dim = self.size.shape[0]
+        self.sites = []
+        self.names = []
+        for pos, name in sites:
+            pos = np.asarray(pos, dtype=float)
+            log.eassert(pos.shape == (self.dim,), "Invalid position for site")
+            self.sites.append(pos)
+            self.names.append(name)
+        self.nsites = len(self.sites)
+
+
+class SuperCell(object):
+    """Supercell = unit cell replicated csize times along each axis."""
+
+    def __init__(self, uc, size):
+        self.unitcell = uc
+        self.dim = uc.dim
+        self.csize = np.array(size, dtype=int)
+        self.size = np.dot(np.diag(self.csize), uc.size)
+        self.ncells = int(np.prod(self.csize))
+        self.nsites = uc.nsites * self.ncells
+        self.cells, self.sites = translate_sites(uc.sites, uc.size, self.csize)
+        self.names = list(uc.names) * self.ncells
+        self.sitedict = {tuple(s): i for i, s in enumerate(map(tuple, self.sites))}
+
+
+def translate_sites(base_sites, usize, csize):
+    """Replicate sites over a C-ordered grid of cells."""
+    cells = [np.asarray(x) for x in it.product(*map(range, csize))]
+    sites = [np.dot(c, usize) + s for c in cells for s in base_sites]
+    return cells, sites
+
+
+def BipartiteSquare(impsize):
+    """Split a rectangular impurity into even/odd sublattices."""
+    subA, subB = [], []
+    for idx, pos in enumerate(it.product(*map(range, impsize))):
+        (subA if np.sum(pos) % 2 == 0 else subB).append(idx)
+    log.eassert(len(subA) == len(subB),
+                "The impurity cannot be divided into two sublattices")
+    return subA, subB
+
+
+class LatticeModel(object):
+    """
+    Model lattice: supercell tiled over a cell grid, with a Hubbard-family
+    Hamiltonian attached through set_Ham_model.  Cells are enumerated
+    C-order over `csize`, so stripe arrays reshape directly to the k mesh.
+    """
+
+    is_model = True
+
+    def __init__(self, sc, size):
+        self.supercell = sc
+        self.dim = sc.dim
+        self.csize = np.asarray(size, dtype=int)
+        self.kmesh = self.csize.copy()
+        self.size = np.dot(np.diag(self.csize), sc.size)
+        self.ncells = int(np.prod(self.csize))
+        self.nkpts = self.ncells
+        self.nao = self.nscsites = sc.nsites
+        self.nsites = sc.nsites * self.ncells
+        self.neighborDist = []
+
+        self.cells, self.sites = translate_sites(sc.sites, sc.size, self.csize)
+        self.cells = np.asarray(self.cells)
+        self.sites = np.asarray(self.sites)
+        self.celldict = {tuple(c): i for i, c in enumerate(map(tuple, self.cells))}
+
+        # orbital partition (all valence by default)
+        self.val_idx = list(range(self.nao))
+        self.virt_idx = []
+        self.core_idx = []
+
+        # static cell-index algebra tables
+        self._build_cell_maps()
+
+        self.Ham = None
+        self.has_Ham = False
+        self.use_hcore_as_emb_ham = False
+        self.H0 = 0.0
+
+        # k-points (scaled, units of 2*pi / cell)
+        self.kpts_scaled = np.array(
+            list(it.product(*[np.fft.fftfreq(n) for n in self.csize])))
+
+    # ------------------------------------------------------------------
+    # orbital bookkeeping
+    # ------------------------------------------------------------------
+    @property
+    def ncore(self):
+        return len(self.core_idx)
+
+    @property
+    def nval(self):
+        return len(self.val_idx)
+
+    @property
+    def nvirt(self):
+        return len(self.virt_idx)
+
+    @property
+    def nimp(self):
+        return self.nval + self.nvirt
+
+    @property
+    def imp_idx(self):
+        return list(self.val_idx) + list(self.virt_idx)
+
+    def set_val_virt_core(self, val, virt, core):
+        if isinstance(core, (list, tuple, np.ndarray)):
+            self.core_idx = list(core)
+        else:
+            self.core_idx = list(range(0, core))
+        if isinstance(val, (list, tuple, np.ndarray)):
+            self.val_idx = list(val)
+        else:
+            self.val_idx = list(range(self.ncore, self.ncore + val))
+        if isinstance(virt, (list, tuple, np.ndarray)):
+            self.virt_idx = list(virt)
+        else:
+            self.virt_idx = list(range(self.ncore + self.nval,
+                                       self.ncore + self.nval + virt))
+
+    # ------------------------------------------------------------------
+    # cell-index algebra
+    # ------------------------------------------------------------------
+    def _build_cell_maps(self):
+        nc = self.ncells
+        pos = self.cells  # (ncells, dim)
+        csz = self.csize
+        add_tab = np.empty((nc, nc), dtype=np.int32)
+        sub_tab = np.empty((nc, nc), dtype=np.int32)
+        ravel = {tuple(p): i for i, p in enumerate(pos)}
+        for i in range(nc):
+            a = (pos[i][None, :] + pos) % csz
+            s = (pos[i][None, :] - pos) % csz
+            add_tab[i] = [ravel[tuple(x)] for x in a]
+            sub_tab[i] = [ravel[tuple(x)] for x in s]
+        self._add_tab = add_tab
+        self._sub_tab = sub_tab
+        # negation map: idx of -R
+        self._neg_map = np.array(
+            [ravel[tuple((-pos[i]) % csz)] for i in range(nc)], dtype=np.int32)
+
+    def add(self, i, j):
+        return int(self._add_tab[i, j])
+
+    def subtract(self, i, j):
+        return int(self._sub_tab[i, j])
+
+    def cell_idx2pos(self, idx):
+        return self.cells[idx]
+
+    def cell_pos2idx(self, pos):
+        return self.celldict[tuple(np.asarray(pos) % self.csize)]
+
+    # ------------------------------------------------------------------
+    # Fourier transforms (stripe <-> k, (re, im) pairs)
+    # ------------------------------------------------------------------
+    def R2k(self, A):
+        """Stripe R -> k; returns (re, im) pair."""
+        return fourier.R2k(A, self.kmesh)
+
+    def k2R(self, B):
+        """k pair -> stripe R (real)."""
+        return fourier.k2R(B, self.kmesh)
+
+    def R2k_basis(self, basis_R):
+        """Embedding basis R -> k pair: no 1/Nk factor."""
+        return fourier.R2k(basis_R, self.kmesh)
+
+    def k2R_basis(self, basis_k):
+        return fourier.k2R(basis_k, self.kmesh)
+
+    # ------------------------------------------------------------------
+    # neighbor search (geometry)
+    # ------------------------------------------------------------------
+    def neighbor(self, dis=1.0, sitesA=None, sitesB=None, search_range=1):
+        if sitesA is None:
+            sitesA = range(self.nsites)
+        if sitesB is None:
+            sitesB = range(self.nsites)
+        sitesA = np.asarray(list(sitesA))
+        sitesB = np.asarray(list(sitesB))
+        shifts = np.asarray(list(it.product(
+            range(-search_range, search_range + 1), repeat=self.dim)))
+        shift_vecs = shifts @ self.size  # (nshift, dim)
+        rA = self.sites[sitesA]  # (na, dim)
+        rB = self.sites[sitesB]  # (nb, dim)
+        diff = rA[:, None, None, :] - rB[None, :, None, :] - shift_vecs[None, None, :, :]
+        dist = np.linalg.norm(diff, axis=-1)
+        hit = np.abs(dist - dis).min(axis=-1) < 1e-5
+        ia, ib = np.nonzero(hit)
+        return list(zip(sitesA[ia].tolist(), sitesB[ib].tolist()))
+
+    # ------------------------------------------------------------------
+    # Hamiltonian attachment
+    # ------------------------------------------------------------------
+    def set_Ham_model(self, Ham, rdm1=None, fock=None, ovlp=None,
+                      eri_symmetry=4, use_hcore_as_emb_ham=True):
+        self.Ham = Ham
+        self.hcore_lo_R = np.asarray(Ham.getH1())
+        self.hcore_lo_k = self.R2k(self.hcore_lo_R)
+        if ovlp is None:
+            self.ovlp_lo_R = np.zeros((self.ncells, self.nao, self.nao))
+            self.ovlp_lo_R[0] = np.eye(self.nao)
+        else:
+            self.ovlp_lo_R = np.asarray(ovlp)
+        self.ovlp_lo_k = self.R2k(self.ovlp_lo_R)
+        if fock is None:
+            self.fock_lo_R = np.asarray(Ham.getFock())
+        else:
+            self.fock_lo_R = np.asarray(fock)
+        self.fock_lo_k = self.R2k(self.fock_lo_R)
+        self.rdm1_lo_R = rdm1
+        if rdm1 is not None:
+            self.rdm1_lo_k = self.R2k(np.asarray(rdm1))
+        self.eri_symmetry = eri_symmetry
+        self.use_hcore_as_emb_ham = use_hcore_as_emb_ham
+        self.has_Ham = True
+        self.H2_format = Ham.H2_format
+        self.H0 = Ham.getH0()
+
+    set_Ham = setHam = setHam_model = set_Ham_model
+
+    # ------------------------------------------------------------------
+    # getters
+    # ------------------------------------------------------------------
+    def getH1(self, kspace=True):
+        return self.hcore_lo_k if kspace else self.hcore_lo_R
+
+    def getFock(self, kspace=True):
+        return self.fock_lo_k if kspace else self.fock_lo_R
+
+    def get_ovlp(self, kspace=True):
+        return self.ovlp_lo_k if kspace else self.ovlp_lo_R
+
+    def getH2(self, compact=False, kspace=False):
+        assert not kspace
+        return self.Ham.getH2()
+
+    def getH0(self):
+        return self.H0
+
+    def __str__(self):
+        return ("LatticeModel dim=%d csize=%s nscsites=%d ncells=%d nsites=%d"
+                % (self.dim, self.csize, self.nscsites, self.ncells, self.nsites))
+
+
+def ChainLattice(length, scsites):
+    """1D 1-band chain."""
+    log.eassert(length % scsites == 0, "incompatible lattice/supercell sizes")
+    uc = UnitCell(np.eye(1), [(np.array([0.0]), "X")])
+    sc = SuperCell(uc, np.asarray([scsites]))
+    lat = LatticeModel(sc, np.asarray([length // scsites]))
+    lat.neighborDist = [1.0, 2.0, 3.0]
+    return lat
+
+
+def MeshLattice(kmesh, nsites_cell):
+    """Generic d-dimensional mesh lattice with `nsites_cell` abstract
+    orbitals per cell: the translation algebra for operators given as
+    arrays on a k mesh."""
+    kmesh = tuple(int(x) for x in kmesh)
+    dim = len(kmesh)
+    sites = [(np.full(dim, (i + 1.0) / (nsites_cell + 1.0)), "X")
+             for i in range(nsites_cell)]
+    uc = UnitCell(np.eye(dim), sites)
+    sc = SuperCell(uc, np.ones(dim, dtype=int))
+    return LatticeModel(sc, np.asarray(kmesh, dtype=int))

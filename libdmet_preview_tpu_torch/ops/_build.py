@@ -1,0 +1,83 @@
+"""
+Build and load the port's hand-written CUDA kernels.
+
+Each kernel source under libdmet_preview_tpu_torch/csrc/ exposes a plain C
+function; it is compiled with nvcc for sm_90a into a shared library and
+loaded with ctypes (no PyTorch headers, so a build takes seconds).  The
+library goes to build/kernels/ beside the package, keyed by a hash of the
+source and the flags, and is built at first use.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+_PKG_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = _PKG_DIR / "csrc"
+BUILD_DIR = _PKG_DIR.parent / "build" / "kernels"
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# C signature of each kernel library's entry point
+_SIGNATURES = {
+    "syrk_df": ("syrk_df_tri_f64",
+                [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                 ctypes.c_int, ctypes.c_void_p], ctypes.c_int),
+}
+
+_loaded = {}
+
+
+def find_nvcc():
+    """nvcc from $CUDA_HOME/bin, else from PATH; raises if absent."""
+    cuda_home = os.environ.get("CUDA_HOME")
+    if cuda_home:
+        cand = Path(cuda_home) / "bin" / "nvcc"
+        if cand.is_file():
+            return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on "
+                           "PATH to build the CUDA kernels")
+    return found
+
+
+def build(name):
+    """Compile csrc/<name>.cu unless the library for this source hash
+    exists.  Returns (path, seconds, compiler log); the log is empty and
+    seconds is 0.0 when the library was already built."""
+    src = CSRC_DIR / (name + ".cu")
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    out = BUILD_DIR / ("lib%s-%s.so" % (name, digest))
+    if out.is_file():
+        return out, 0.0, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(".so.tmp%d" % os.getpid())
+    cmd = [find_nvcc()] + NVCC_FLAGS + ["-o", str(tmp), str(src)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError("nvcc failed for %s (rc=%d):\n%s%s"
+                           % (src, proc.returncode, proc.stdout, proc.stderr))
+    os.replace(tmp, out)
+    return out, seconds, proc.stdout + proc.stderr
+
+
+def load(name):
+    """The entry point of kernel library `name` as a ctypes function,
+    building the library at first use."""
+    if name not in _loaded:
+        path, _, _ = build(name)
+        symbol, argtypes, restype = _SIGNATURES[name]
+        fn = getattr(ctypes.CDLL(str(path)), symbol)
+        fn.argtypes = argtypes
+        fn.restype = restype
+        _loaded[name] = fn
+    return _loaded[name]
