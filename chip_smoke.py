@@ -11,15 +11,29 @@ Phases, in order; any failure raises and the process exits non-zero:
   2. build: compile every hand-written kernel from the sources in the
      checkout (nvcc, sm_90a) into build/kernels/;
   3. kernels against their plain versions on the card: syrk_df vs F^T F at
-     (naux, neo) = (512, 32), (300, 45), (7, 2); 1e-12 relative, exactly
-     symmetric; times of both at (512, 32) and (1024, 96);
+     (naux, neo) = (512, 32), (300, 45), (7, 2), 1e-12 relative and exactly
+     symmetric; the cross kernel syrk_df(F, F2) vs F^T F2 at (96, 18),
+     (300, 45), (7, 2), 1e-12 relative; then at the timing shapes
+     (512, 32) (tri only), (2400, 60) (the phase-6 path's) and (1024, 96)
+     each kernel is checked the same way and timed against its plain
+     version, which is one cuBLAS call (torch.mm), beside its bound;
   4. the main path at the bench workload (Nk=27, nlo=16, neo=32,
      naux=512, beta=1000, 20 LM fit steps; inputs made with NumPy from the
      same seeds as bench.py): one step on the card against the same step
      on the CPU, then 10 chained iterations on the card, counting kernel
      launches;
   5. the 1D Hubbard flagship (ChainLattice(18, 2), U=4, PMInitGuess): one
-     step on the card against the CPU.
+     step on the card against the CPU;
+  6. the unrestricted ab initio path, one-shot interacting-bath UHF-DMET
+     at the width of the CuO2 AFM plane (8 cells x 30 LOs, neo=60,
+     naux=2400; inputs made with NumPy from fixed seeds): HartreeFock ->
+     ConstructImpHam(int_bath=True, matching=True) -> SCFSolver(UHF) ->
+     transformResults, once on the card and once on the CPU, compared
+     gauge-invariantly; on the card the ab block against the einsum of
+     the rotated factors, the aa/bb blocks exactly symmetric, and >= 2
+     symmetric and >= 1 cross syrk launches counted on the path; the
+     stages of that run, each timed with the card synchronised around it
+     (utils.timer).
 
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}.
@@ -45,7 +59,14 @@ NAUX = 512
 N_CHAIN = 10
 
 KERNEL_SHAPES = [(512, 32), (300, 45), (7, 2)]
-TIMING_SHAPES = [(512, 32), (1024, 96)]
+CROSS_SHAPES = [(96, 18), (300, 45), (7, 2)]
+# (naux, neo): the bench path's tri shape, the ab initio path's, a large one
+TIMING_SHAPES = [(512, 32), (2400, 60), (1024, 96)]
+PATH_SHAPE = (2400, 60)     # shape of the kernels on the phase-6 path
+
+# H100 SXM data sheet peaks (700 W): FP64 on the tensor cores, HBM3
+PEAK_FP64_FLOPS = 67e12
+PEAK_HBM_BYTES = 3.35e12
 
 # gauge-invariant CUDA-vs-CPU tolerances of the main path
 TOL = {"rho_R": 1e-8, "bath projector": 1e-8, "embH1 spectrum": 1e-8,
@@ -68,12 +89,21 @@ def phase_device():
 
 
 def phase_build():
+    """Build every kernel library and report each entry point's
+    registers, spills and shared memory from ptxas."""
     from libdmet_preview_tpu_torch.ops import _build
     path, seconds, log = _build.build("syrk_df")
     print("build syrk_df: %.2f s -> %s" % (seconds, path.name))
+    kernel = None
     for line in log.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            print("  ptxas: " + line.strip())
+        if "Compiling entry function" in line:
+            kernel = line.split("'")[1] if "'" in line else line.strip()
+        elif kernel and ("registers" in line or "spill" in line
+                         or "smem" in line):
+            print("  ptxas %s: %s" % (kernel, line.split(":", 1)[-1].strip()))
+    for symbol in _build.entry_points("syrk_df"):
+        _build.load("syrk_df", symbol)
+        print("  entry point %s loaded" % symbol)
 
 
 def _packed_factors(naux, neo, seed, device):
@@ -97,37 +127,85 @@ def _time_ms(fn, reps=20):
     return t0.elapsed_time(t1) / reps
 
 
+def kernel_bound(kind, naux, npair):
+    """Least time (ms) the card could take for the syrk, and what bounds
+    it: FP64 operations over the tensor-core peak, or bytes (each input
+    read once, the full square output written once) over HBM bandwidth.
+    kind 'tri' counts the triangle's operations, 'cross' the square's."""
+    if kind == "tri":
+        flops = naux * npair * (npair + 1)
+        nbytes = 8 * (naux * npair + npair * npair)
+    else:
+        flops = 2 * naux * npair * npair
+        nbytes = 8 * (2 * naux * npair + npair * npair)
+    t_ops, t_bytes = flops / PEAK_FP64_FLOPS, nbytes / PEAK_HBM_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", flops)
+
+
+def _check_kernel(name, out, ref, symmetric):
+    err = torch.max(torch.abs(out - ref)).item()
+    rel = err / torch.max(torch.abs(ref)).item()
+    sym = torch.equal(out, out.T)
+    print("%s (npair=%d): max_abs_err %.3e rel %.3e symmetric=%s"
+          % (name, out.shape[0], err, rel, sym))
+    if not rel <= 1e-12 or (symmetric and not sym):
+        raise AssertionError("%s disagrees with its plain version" % name)
+    return err
+
+
 def phase_kernels(device):
+    """Each kernel against its plain version at the check shapes and the
+    timing shapes, and the timings.  The plain version is one cuBLAS call
+    (torch.mm), so it is also the library call.  Returns ({kernel:
+    max_abs_err}, {(kernel, naux, neo): (ms, plain_ms)})."""
     from libdmet_preview_tpu_torch.ops.eri_kernels import (syrk_df,
                                                            syrk_df_plain)
-    max_abs = 0.0
+    max_abs = {"syrk_df": 0.0, "syrk_df_cross": 0.0}
     for naux, neo in KERNEL_SHAPES:
         F = _packed_factors(naux, neo, seed=neo, device=device)
         out = syrk_df(F)
         torch.cuda.synchronize()
-        ref = syrk_df_plain(F)
-        err = torch.max(torch.abs(out - ref)).item()
-        rel = err / torch.max(torch.abs(ref)).item()
-        sym = torch.equal(out, out.T)
-        print("syrk_df (naux=%d, neo=%d, npair=%d): max_abs_err %.3e "
-              "rel %.3e symmetric=%s" % (naux, neo, F.shape[1], err, rel, sym))
-        if not (rel <= 1e-12 and sym):
-            raise AssertionError("syrk_df disagrees with F^T F at (%d, %d)"
-                                 % (naux, neo))
-        max_abs = max(max_abs, err)
+        err = _check_kernel("syrk_df (naux=%d, neo=%d)" % (naux, neo), out,
+                            syrk_df_plain(F), symmetric=True)
+        max_abs["syrk_df"] = max(max_abs["syrk_df"], err)
+    for naux, neo in CROSS_SHAPES:
+        F = _packed_factors(naux, neo, seed=neo, device=device)
+        F2 = _packed_factors(naux, neo, seed=neo + 1000, device=device)
+        out = syrk_df(F, F2)
+        torch.cuda.synchronize()
+        err = _check_kernel("syrk_df_cross (naux=%d, neo=%d)" % (naux, neo),
+                            out, syrk_df_plain(F, F2), symmetric=False)
+        max_abs["syrk_df_cross"] = max(max_abs["syrk_df_cross"], err)
     times = {}
     for naux, neo in TIMING_SHAPES:
         F = _packed_factors(naux, neo, seed=1, device=device)
-        # alternate plain, kernel, kernel, plain
-        tp = [_time_ms(lambda: syrk_df_plain(F))]
-        tk = [_time_ms(lambda: syrk_df(F)), _time_ms(lambda: syrk_df(F))]
-        tp.append(_time_ms(lambda: syrk_df_plain(F)))
-        times[(naux, neo)] = (float(np.mean(tk)), float(np.mean(tp)))
-        flop = naux * F.shape[1] * (F.shape[1] + 1)   # lower triangle
-        print("syrk_df timing (naux=%d, neo=%d): kernel %.4f ms "
-              "(%.2f TFLOP/s on the triangle), plain F.T@F %.4f ms"
-              % (naux, neo, times[(naux, neo)][0],
-                 flop / times[(naux, neo)][0] * 1e-9, times[(naux, neo)][1]))
+        F2 = _packed_factors(naux, neo, seed=2, device=device)
+        npair = F.shape[1]
+        cases = [("syrk_df", "tri", lambda: syrk_df(F),
+                  lambda: syrk_df_plain(F))]
+        if (naux, neo) != (512, 32):
+            cases.append(("syrk_df_cross", "cross", lambda: syrk_df(F, F2),
+                          lambda: syrk_df_plain(F, F2)))
+        for name, kind, kern, plain in cases:
+            out = kern()
+            torch.cuda.synchronize()
+            err = _check_kernel("%s (naux=%d, neo=%d)" % (name, naux, neo),
+                                out, plain(), symmetric=kind == "tri")
+            max_abs[name] = max(max_abs[name], err)
+            del out
+            # alternate plain, kernel, kernel, plain
+            tp = [_time_ms(plain)]
+            tk = [_time_ms(kern), _time_ms(kern)]
+            tp.append(_time_ms(plain))
+            t = (float(np.mean(tk)), float(np.mean(tp)))
+            times[(name, naux, neo)] = t
+            bound, by, flops = kernel_bound(kind, naux, npair)
+            print("%s timing (naux=%d, neo=%d, npair=%d): kernel %.4f ms "
+                  "(%.2f TFLOP/s), plain (cuBLAS torch.mm) %.4f ms, "
+                  "bound %.4f ms (%s), kernel at %.1f%% of bound"
+                  % (name, naux, neo, npair, t[0], flops / t[0] * 1e-9,
+                     t[1], bound, by, 100.0 * bound / t[0]))
     return max_abs, times
 
 
@@ -273,6 +351,7 @@ def phase_bench(device):
     torch.cuda.synchronize()
     # the main path: counts start at 0 here
     syrk_df.launches = 0
+    syrk_df.cross_launches = 0
     out_d = step(p0, tgt)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -325,24 +404,256 @@ def phase_hubbard(device):
     compare_steps(outs[0], outs[1], "hubbard")
 
 
+# ----------------------------------------------------------------------
+# phase 6: one-shot interacting-bath UHF-DMET at the CuO2 AFM plane's width
+# ----------------------------------------------------------------------
+
+# sqrt2 x sqrt2 AFM double cell in the JAX package's tpu-szv basis:
+# 2 Cu x (4s + 6 d) + 4 O x (2s + 2p) = 30 LOs, 25 electrons per formula
+# unit and two formula units per cell; a BvK chain of 8 cells
+AI_NCELLS = 8
+AI_NLO = 30
+AI_NAUX = 2400              # ~10 x nsites: a pivoted-Cholesky rank
+AI_FILLING = 50.0 / 60.0
+AI_DELTA = 2.0              # staggered on-site field on the Cu d shells
+AI_CU_S = [0, 7]            # 4s of Cu A, Cu B
+AI_CU_A_UP = [1, 2, 3]      # d orbitals of Cu A raised for alpha
+AI_CU_B_UP = [8, 9, 10]     # d orbitals of Cu B raised for beta
+AI_O = list(range(14, 30))
+
+AI_TOL = {"HF E": 1e-8, "HF rho_R": 1e-8, "bath projector": 1e-8,
+          "H1 spectrum": 1e-8, "H2 aa (mapped, rel)": 1e-10,
+          "H2 bb (mapped, rel)": 1e-10, "H2 ab (mapped, rel)": 1e-10,
+          "SCF E": 1e-8, "E per cell": 1e-8, "nelec per cell": 1e-8}
+
+
+def _tr_stripe(rng, ncells, n, scale):
+    """Random time-reversal-symmetric stripe h[R] (h[-R] = h[R]^T),
+    decaying with the cell distance."""
+    h = np.zeros((ncells, n, n))
+    for R in range(ncells // 2 + 1):
+        d = min(R, ncells - R)
+        blk = rng.randn(n, n) * scale / (1.0 + d) ** 2
+        if R == 0 or 2 * R == ncells:
+            blk = 0.5 * (blk + blk.T)
+        h[R] = blk
+        h[(-R) % ncells] = blk.T
+    return h
+
+
+def make_abinitio_workload(seed=5, ncells=AI_NCELLS, nlo=AI_NLO,
+                           naux=AI_NAUX):
+    """hcore/fock per-spin stripes (2, ncells, nlo, nlo), chol_L (naux,
+    nsites, nsites) symmetric in (p, q) with ERI entries O(0.1-1), and
+    the unit-cell ERI, all NumPy from `seed`.  The staggered +-Delta field
+    on the Cu d shells, of opposite sign per spin, opens a gap at 25
+    electrons per spin and cell."""
+    rng = np.random.RandomState(seed)
+    onsite = np.zeros(nlo)
+    onsite[[i for i in AI_O if i < nlo]] = -1.0
+    onsite[[i for i in AI_CU_S if i < nlo]] = 3.0
+    stag = np.zeros(nlo)
+    stag[[i for i in AI_CU_A_UP if i < nlo]] = AI_DELTA
+    stag[[i for i in AI_CU_B_UP if i < nlo]] = -AI_DELTA
+    hop = _tr_stripe(rng, ncells, nlo, 0.1)
+    hcore = np.stack([hop, hop])
+    hcore[0, 0] += np.diag(onsite + stag)
+    hcore[1, 0] += np.diag(onsite - stag)
+    fock = hcore + _tr_stripe(rng, ncells, nlo, 0.05)[None]
+    nsites = ncells * nlo
+    L = np.empty((naux, nsites, nsites))
+    for x0 in range(0, naux, 200):
+        blk = rng.randn(min(200, naux - x0), nsites, nsites)
+        L[x0:x0 + len(blk)] = 0.01 * (blk + blk.transpose(0, 2, 1))
+    L0 = L[:, :nlo, :nlo].reshape(naux, nlo * nlo)
+    eri_imp = (L0.T @ L0).reshape((nlo,) * 4)
+    return hcore, fock, L, eri_imp
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def run_abinitio_uhf(hcore, fock, L, eri_imp, device, ncells=AI_NCELLS):
+    """The user's one-shot driver on `device`; returns its results and the
+    host-clock seconds of each entry point and of the stages inside
+    ConstructImpHam, the device synchronised around each
+    ({name: [seconds]}, in the order run)."""
+    import libdmet_preview_tpu_torch.dmet.hubbard as dmet
+    from libdmet_preview_tpu_torch.models.abinitio import AbInitioHam
+    from libdmet_preview_tpu_torch.ops import embham
+    from libdmet_preview_tpu_torch.solvers import SCFSolver
+    from libdmet_preview_tpu_torch.utils import timer
+    nlo = hcore.shape[-1]
+    with timer.recording() as sec:
+        with timer.stage("set-up (factors to the device)", device):
+            Lat = dmet.ChainLattice(ncells * nlo, nlo)
+            Ham = AbInitioHam(hcore, fock, L, eri_imp, 0.0)
+            Lat.set_Ham_abinitio(Ham, device=device)
+            vcor = dmet.VcorLocal(False, False, nlo)
+            vcor.assign(np.zeros((2, nlo, nlo)))
+        with timer.stage("HF", device):
+            rho, mu, res = dmet.HartreeFock(Lat, vcor, AI_FILLING, None,
+                                            ires=True)
+            Lat.set_Ham_abinitio(Ham, rdm1=rho, device=device)
+        with timer.stage("ConstructImpHam", device):
+            ImpHam, H1e, basis = dmet.ConstructImpHam(
+                Lat, rho, vcor, matching=True, int_bath=True)
+        with timer.stage("SCF", device):
+            rho_mf = embham.foldRho_k(Lat.rdm1_lo_k, Lat.R2k_basis(basis))
+            nel = int(round(float(torch.trace(rho_mf[0])
+                                  + torch.trace(rho_mf[1]))))
+            hf = SCFSolver(restricted=False, device=device)
+            rdm1, E_scf = hf.run(ImpHam, nelec=nel, dm0=rho_mf)
+        with timer.stage("energy", device):
+            _, E_cell, n_cell = dmet.transformResults(
+                rdm1, E_scf, basis, ImpHam, H1e, lattice=Lat, last_dmu=0.0,
+                int_bath=True, solver=hf, solver_args={"nelec": nel})
+    return {"Lat": Lat, "rho": rho, "E_hf": res["E"], "gap": res["gap"],
+            "basis": basis, "ImpHam": ImpHam, "nel": nel, "rdm1": rdm1,
+            "E_scf": E_scf, "E_cell": E_cell, "n_cell": n_cell,
+            "bfgs": list(hf.scf.oo_iterations),
+            "converged": hf.scf.converged}, sec
+
+
+def compare_abinitio(d, c):
+    """Gauge-invariant card (d) vs CPU (c) differences of the phase-6
+    results; the H2 blocks are carried into the CPU run's basis with
+    O_s = B_s,cpu^T B_s,card on the card."""
+    dev = d["basis"].device
+    nb = d["basis"].shape[-1]
+    Bd = d["basis"].reshape(2, -1, nb)
+    Bc = c["basis"].to(dev).reshape(2, -1, nb)
+    Pd = Bd @ Bd.transpose(-1, -2)
+    Pc = Bc @ Bc.transpose(-1, -2)
+    ev_d = torch.linalg.eigvalsh(d["ImpHam"].H1["cd"])
+    ev_c = torch.linalg.eigvalsh(c["ImpHam"].H1["cd"].to(dev))
+    O = Bc.transpose(-1, -2) @ Bd
+    diffs = {
+        "HF E": abs(d["E_hf"] - c["E_hf"]),
+        "HF rho_R": float(np.abs(d["rho"] - c["rho"]).max()),
+        "bath projector": float(torch.max(torch.abs(Pd - Pc))),
+        "H1 spectrum": float(torch.max(torch.abs(ev_d - ev_c))),
+    }
+    H2d = d["ImpHam"].H2["ccdd"]
+    for m, (a, b, name) in enumerate([(0, 0, "aa"), (1, 1, "bb"),
+                                      (0, 1, "ab")]):
+        ref = c["ImpHam"].H2["ccdd"][m].to(dev)
+        mp = torch.einsum("ip, pqrs -> iqrs", O[a], H2d[m])
+        mp = torch.einsum("jq, iqrs -> ijrs", O[a], mp)
+        mp = torch.einsum("kr, ijrs -> ijks", O[b], mp)
+        mp = torch.einsum("ls, ijks -> ijkl", O[b], mp)
+        diffs["H2 %s (mapped, rel)" % name] = float(
+            torch.max(torch.abs(mp - ref)) / torch.max(torch.abs(ref)))
+    diffs["SCF E"] = abs(d["E_scf"] - c["E_scf"])
+    diffs["E per cell"] = abs(d["E_cell"] - c["E_cell"])
+    diffs["nelec per cell"] = abs(d["n_cell"] - c["n_cell"])
+    return diffs
+
+
+def phase_abinitio_uhf(device):
+    from libdmet_preview_tpu_torch.ops.eri_kernels import syrk_df
+    from libdmet_preview_tpu_torch.ops.eri_transform import _rotate_chol
+    t0 = time.perf_counter()
+    hcore, fock, L, eri_imp = make_abinitio_workload()
+    print("ab initio workload: %d cells x %d LOs, naux=%d, chol_L %.2f GB "
+          "(made in %.1f s)" % (AI_NCELLS, AI_NLO, L.shape[0],
+                                L.nbytes / 1e9, time.perf_counter() - t0))
+    # the main path: counts start at 0 here
+    _sync(device)
+    syrk_df.launches = 0
+    syrk_df.cross_launches = 0
+    d, sec_d = run_abinitio_uhf(hcore, fock, L, eri_imp, device)
+    _sync(device)
+    launches = {"syrk_df": syrk_df.launches,
+                "syrk_df_cross": syrk_df.cross_launches}
+    print("abinitio main path: syrk_df launches %d, cross launches %d"
+          % (launches["syrk_df"], launches["syrk_df_cross"]))
+    for k, v in sec_d.items():
+        print("abinitio on the card: %-32s %.6f s (%d call%s)"
+              % (k, sum(v), len(v), "" if len(v) == 1 else "s"))
+    print("abinitio on the card: neo=%d, nelec=%d, HF E/cell %.10f, gap %s, "
+          "SCF E %.10f (converged %s, BFGS iterations %s), E/cell "
+          "%.10f, nelec/cell %.10f"
+          % (d["basis"].shape[-1], d["nel"], d["E_hf"], d["gap"], d["E_scf"],
+             d["converged"], d["bfgs"], d["E_cell"], d["n_cell"]))
+
+    c, sec_c = run_abinitio_uhf(hcore, fock, L, eri_imp, torch.device("cpu"))
+    for k, v in sec_c.items():
+        print("abinitio on the CPU:  %-32s %.6f s (%d call%s)"
+              % (k, sum(v), len(v), "" if len(v) == 1 else "s"))
+    diffs = compare_abinitio(d, c)
+    for k, v in diffs.items():
+        print("abinitio: cuda vs cpu %-22s %.3e (tol %.0e)" % (k, v, AI_TOL[k]))
+    bad = [k for k, v in diffs.items() if not v <= AI_TOL[k]]
+
+    # card-only checks: the main path's aa, bb and ab blocks against the
+    # einsum of its rotated factors, exact symmetry of aa and bb
+    H2 = d["ImpHam"].H2["ccdd"]
+    nb = H2.shape[-1]
+    C = d["basis"].reshape(2, -1, nb)
+    Lt = d["Lat"].getH2()
+    Lr = [_rotate_chol(Lt, C[0]), _rotate_chol(Lt, C[1])]
+    for m, (a, b, name) in enumerate([(0, 0, "aa"), (1, 1, "bb"),
+                                      (0, 1, "ab")]):
+        ref = torch.einsum("xij, xkl -> ijkl", Lr[a], Lr[b])
+        rel = float(torch.max(torch.abs(H2[m] - ref))
+                    / torch.max(torch.abs(ref)))
+        del ref
+        print("abinitio: %s block vs einsum(L%s, L%s) rel %.3e (tol 1e-12)"
+              % (name, name[0], name[1], rel))
+        if not rel <= 1e-12:
+            bad.append("%s block vs einsum" % name)
+    del Lr
+    for m in (0, 1):
+        M = H2[m].reshape(nb * nb, nb * nb)
+        if not torch.equal(M, M.T):
+            bad.append("H2 block %d not exactly symmetric" % m)
+    for name, v in [("E", d["E_cell"]), ("nelec", d["n_cell"])]:
+        if not np.isfinite(v):
+            bad.append("non-finite %s" % name)
+    if tuple(H2.shape) != (3,) + (nb,) * 4 or nb != 2 * AI_NLO:
+        bad.append("H2 shape %s" % (tuple(H2.shape),))
+    if launches["syrk_df"] < 2 or launches["syrk_df_cross"] < 1:
+        bad.append("launch counts %s" % launches)
+    if bad:
+        raise AssertionError("abinitio phase failed: %s" % bad)
+    return launches
+
+
 def main():
     device, card = phase_device()
     phase_build()
     max_abs, times = phase_kernels(device)
-    launches, ms_iter = phase_bench(device)
+    launches_bench, ms_iter = phase_bench(device)
     phase_hubbard(device)
-    k_ms, p_ms = times[(512, 32)]
+    launches_ai = phase_abinitio_uhf(device)
     print("card: %s" % card)
-    print(json.dumps({"kernels": [{
-        "name": "syrk_df",
-        "route": "cuda",
-        "source": "libdmet_preview_tpu_torch/csrc/syrk_df.cu",
-        "replaces": "libdmet_preview_tpu/ops/pallas_eri.py:163",
-        "launches": launches,
-        "max_abs_err": max_abs,
-        "ms": k_ms,
-        "plain_ms": p_ms,
-    }]}))
+    naux, neo = PATH_SHAPE
+    npair = neo * (neo + 1) // 2
+    kernels = []
+    for name, kind, replaces, launches in [
+            ("syrk_df", "tri", "libdmet_preview_tpu/ops/pallas_eri.py:163",
+             {"bench": launches_bench,
+              "abinitio_uhf": launches_ai["syrk_df"]}),
+            ("syrk_df_cross", "cross",
+             "libdmet_preview_tpu/ops/pallas_eri.py:45",
+             {"abinitio_uhf": launches_ai["syrk_df_cross"]})]:
+        ms, plain_ms = times[(name, naux, neo)]
+        bound_ms, bound_by, _ = kernel_bound(kind, naux, npair)
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "libdmet_preview_tpu_torch/csrc/syrk_df.cu",
+            "replaces": replaces,
+            "launches": sum(launches.values()),
+            "launches_by_path": launches,
+            "max_abs_err": max_abs[name],
+            "shape": [naux, neo],
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": plain_ms})
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,17 +1,212 @@
 """
-DMET vocabulary for Hubbard-family lattice models (PyTorch port of the
-parts of libdmet_preview_tpu/dmet/hubbard.py that the fused lattice
-iteration needs: the lattice/Hamiltonian re-exports and the vcor initial
-guesses).
+DMET user-facing API (PyTorch port of the parts of
+libdmet_preview_tpu/dmet/hubbard.py that the fused lattice iteration and
+the one-shot interacting-bath UHF-DMET need: the lattice/Hamiltonian
+re-exports, HartreeFock, ConstructImpHam, transformResults with the
+democratic-partitioning energy, and the vcor initial guesses).
+
+The one-shot driver, as in tests/test_cuo2_afm.py:
+
+    rho, mu, res = HartreeFock(Lat, vcor, filling, None, ires=True)
+    ImpHam, H1e, basis = ConstructImpHam(Lat, rho, vcor, matching=True,
+                                         int_bath=True)
+    rdm1, E = SCFSolver(restricted=False, device=...).run(ImpHam, nelec,
+                                                          dm0=...)
+    _, E_cell, nelec_cell = transformResults(rdm1, E, basis, ImpHam, H1e,
+                                             lattice=Lat, last_dmu=0.0,
+                                             int_bath=True, solver=...)
+
+Embedding quantities are tensors on the lattice's device.
 """
 
 import numpy as np
+import torch
 
+from libdmet_preview_tpu_torch.utils import logger as log
+from libdmet_preview_tpu_torch.utils.misc import as_f64
+from libdmet_preview_tpu_torch.utils.timer import stage
 from libdmet_preview_tpu_torch.models.lattice import (  # noqa: F401
     ChainLattice, BipartiteSquare)
 from libdmet_preview_tpu_torch.models.hamiltonian import (  # noqa: F401
     HubbardHamiltonian as Ham)
+from libdmet_preview_tpu_torch.models.integral import Integral
+from libdmet_preview_tpu_torch.ops import embham, mfd
 from libdmet_preview_tpu_torch.ops.vcor import VcorLocal
+
+foldRho_k = embham.foldRho_k
+HF = mfd.HF
+
+
+# ----------------------------------------------------------------------
+# mean field wrappers
+# ----------------------------------------------------------------------
+
+def HartreeFock(Lat, v, filling, mu0=None, beta=np.inf, ires=False, **kwargs):
+    rho, mu, E, res = mfd.HF(Lat, v, filling, v.restricted, mu0=mu0,
+                             beta=beta, ires=True, **kwargs)
+    log.result("Chemical potential (mean-field) = %s", mu)
+    log.result("Energy per cell (mean-field) = %20.12f", E)
+    log.result("Gap (mean-field) = %s", res["gap"])
+    if ires:
+        return rho, mu, res
+    return rho, mu
+
+
+# ----------------------------------------------------------------------
+# impurity Hamiltonian
+# ----------------------------------------------------------------------
+
+def ConstructImpHam(Lat, rho, v, mu=None, matching=True, local=True,
+                    int_bath=False, **kwargs):
+    with stage("bath", Lat.device):
+        log.result("Making embedding basis")
+        basis = embham.embBasis(Lat, rho, local=local, **kwargs)
+        if matching and basis.shape[0] == 2:
+            log.result("Rotating bath to match alpha/beta")
+            nimp = Lat.nimp
+            basis[:, :, :, nimp:] = _match_bath(basis[:, :, :, nimp:])
+    log.result("Constructing impurity Hamiltonian")
+    ImpHam, H1e = embham.embHam(Lat, basis, v, local=local, int_bath=int_bath,
+                                **kwargs)
+    return ImpHam, H1e, basis
+
+
+def _match_bath(basis_bath):
+    shape = basis_bath.shape
+    flat = basis_bath.reshape(2, -1, shape[-1])
+    return embham.basis_matching(flat).reshape(shape)
+
+
+# ----------------------------------------------------------------------
+# results transform + energy
+# ----------------------------------------------------------------------
+
+def _env_idx(nbasis, imp_idx):
+    return np.asarray([i for i in range(nbasis) if i not in imp_idx],
+                      dtype=int)
+
+
+def get_H1_scaled(H1, imp_idx, env_idx=None):
+    """Democratic partitioning of H1 (spin, n, n) tensor: imp-env blocks
+    halved, env-env zeroed."""
+    H1 = H1.clone()
+    if env_idx is None:
+        env_idx = _env_idx(H1.shape[-1], imp_idx)
+    imp = torch.as_tensor(np.asarray(imp_idx, dtype=int), device=H1.device)
+    env = torch.as_tensor(np.asarray(env_idx, dtype=int), device=H1.device)
+    H1[:, imp[:, None], env[None, :]] *= 0.5
+    H1[:, env[:, None], imp[None, :]] *= 0.5
+    H1[:, env[:, None], env[None, :]] = 0.0
+    return H1
+
+
+def get_H2_scaled(H2, imp_idx, env_idx=None):
+    """Democratic partitioning of a (spin_pair, n, n, n, n) H2 tensor: each
+    index contributes 1/4 weight when on the impurity."""
+    nbasis = H2.shape[-1]
+    w = torch.zeros(nbasis, dtype=H2.dtype, device=H2.device)
+    w[torch.as_tensor(np.asarray(imp_idx, dtype=int), device=H2.device)] = 1.0
+    factor = 0.25 * (w[:, None, None, None] + w[None, :, None, None]
+                     + w[None, None, :, None] + w[None, None, None, :])
+    return H2 * factor
+
+
+def transformResults(rhoEmb, E, basis, ImpHam, H1e=None, int_bath=False,
+                     **kwargs):
+    """rhoEmb (spin, neo, neo) tensor -> (rhoImp, E_per_cell,
+    nelec_per_cell)."""
+    spin = rhoEmb.shape[0]
+    nscsites = basis.shape[2]
+    nbasis = basis.shape[-1]
+
+    if "lattice" in kwargs and kwargs["lattice"] is not None:
+        imp_idx = np.asarray(kwargs.get("imp_idx",
+                                        range(kwargs["lattice"].nimp)))
+    else:
+        imp_idx = np.asarray(kwargs.get("imp_idx", np.arange(nscsites)))
+    imp_t = torch.as_tensor(imp_idx, device=rhoEmb.device)
+    nelec = float(sum(torch.sum(rhoEmb[s, imp_t, imp_t])
+                      for s in range(spin))) * 2.0 / spin
+    rhoImp = rhoEmb[:, imp_t[:, None], imp_t[None, :]]
+
+    if E is None:
+        return nelec / nscsites
+
+    lattice = kwargs["lattice"]
+    last_dmu = kwargs["last_dmu"]
+    dmu_idx = kwargs.get("dmu_idx", None)
+    if dmu_idx is None:
+        dmu_idx = list(range(nscsites))
+    env_idx = _env_idx(nbasis, imp_idx)
+    H1 = ImpHam.H1["cd"]
+
+    E2 = E - float(torch.einsum("spq, sqp", H1, rhoEmb)) * (2.0 / spin) \
+        - ImpHam.H0
+
+    H1_scaled = H1.clone()
+    dmu_mat = torch.zeros((nscsites, nscsites), dtype=H1.dtype,
+                          device=H1.device)
+    dmu_t = torch.as_tensor(np.asarray(dmu_idx, dtype=int), device=H1.device)
+    dmu_mat[dmu_t, dmu_t] = -last_dmu
+    for s in range(spin):
+        H1_scaled[s] -= embham.transform_imp(basis[s], dmu_mat)
+        if lattice.JK_core is not None:
+            H1_scaled[s] -= 0.5 * lattice.JK_core[s]
+    H1_scaled = get_H1_scaled(H1_scaled, imp_idx, env_idx)
+
+    E1 = float(torch.einsum("spq, sqp", H1_scaled, rhoEmb)) * (2.0 / spin)
+    Efrag = E1 + E2 + lattice.getH0()
+
+    if int_bath:
+        solver = kwargs.get("solver", None)
+        solver_args = kwargs.get("solver_args", {})
+        Efrag = get_E_dmet(basis, lattice, ImpHam, last_dmu, solver,
+                           solver_args=solver_args, imp_idx=list(imp_idx),
+                           **{k: v for k, v in kwargs.items()
+                              if k in ("add_vcor_to_E", "vcor", "E1",
+                                       "veff")})
+    log.debug(0, "E0 = %20.12f, E1 = %20.12f, E2 = %20.12f, E = %20.12f",
+              lattice.getH0(), E1, E2, Efrag)
+    return rhoImp, Efrag / nscsites, nelec / nscsites
+
+
+def get_H_dmet(basis, lattice, ImpHam, last_dmu, imp_idx=None,
+               add_vcor_to_E=False, vcor=None, E1=None, veff=None, **kwargs):
+    """Scaled (democratic-partitioning) DMET Hamiltonian for the
+    interacting-bath energy functional."""
+    if E1 is not None or veff is not None:
+        raise NotImplementedError("get_H_dmet: the E1-from-glob and "
+                                  "charge-self-consistency (veff) variants "
+                                  "are not ported")
+    spin = basis.shape[0]
+    nbasis = basis.shape[-1]
+    if imp_idx is None:
+        imp_idx = list(range(lattice.nimp))
+    env_idx = _env_idx(nbasis, imp_idx)
+    basis_k = lattice.R2k_basis(basis)
+    H1_scaled = embham.transform_h1(lattice.getH1(kspace=True), basis_k)
+    if lattice.JK_core is not None:
+        H1_scaled = H1_scaled + 0.5 * lattice.JK_core
+    if add_vcor_to_E:
+        vmat = as_f64(vcor.get(), basis.device)
+        for s in range(spin):
+            H1_scaled[s] += 0.5 * embham.transform_local(basis[s], vmat[s])
+            H1_scaled[s] -= 0.5 * embham.transform_imp(basis[s], vmat[s])
+    H1_scaled = get_H1_scaled(H1_scaled, imp_idx, env_idx)
+    H2_scaled = get_H2_scaled(ImpHam.H2["ccdd"], imp_idx, env_idx)
+    return Integral(nbasis, spin == 1, False, lattice.getH0(),
+                    {"cd": H1_scaled}, {"ccdd": H2_scaled})
+
+
+def get_E_dmet(basis, lattice, ImpHam, last_dmu, solver, solver_args={},
+               **kwargs):
+    ImpHam_scaled = get_H_dmet(basis, lattice, ImpHam, last_dmu, **kwargs)
+    return solver.run_dmet_ham(ImpHam_scaled, **solver_args)
+
+
+# ----------------------------------------------------------------------
+# vcor initial guesses
+# ----------------------------------------------------------------------
 
 
 def AFInitGuess(ImpSize, U, Filling, polar=None, bogoliubov=False, rand=0.0,

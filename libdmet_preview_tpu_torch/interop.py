@@ -10,6 +10,7 @@ runs in the other on identical inputs.
 import numpy as np
 import torch
 
+from libdmet_preview_tpu_torch.models.abinitio import AbInitioHam
 from libdmet_preview_tpu_torch.models.hamiltonian import HamNonInt
 from libdmet_preview_tpu_torch.models.lattice import MeshLattice
 from libdmet_preview_tpu_torch.ops.vcor import VcorLocal
@@ -29,6 +30,31 @@ def lattice_from_numpy(kmesh, nscsites, hcore_R, fock_R, ovlp_R=None,
     lat.set_Ham_model(ham, ovlp=None if ovlp_R is None
                       else np.asarray(ovlp_R, dtype=float),
                       use_hcore_as_emb_ham=use_hcore_as_emb_ham)
+    if val_idx is None:
+        val_idx = list(range(nscsites))
+    lat.set_val_virt_core(list(val_idx), list(virt_idx), list(core_idx))
+    return lat
+
+
+def abinitio_lattice_from_numpy(kmesh, nscsites, hcore_R, fock_R, chol_L,
+                                eri_imp, H0, rdm1_R=None, val_idx=None,
+                                virt_idx=(), core_idx=(),
+                                device=torch.device("cuda")):
+    """A port ab initio lattice on `kmesh` with `nscsites` LOs per cell,
+    holding an AbInitioHam built from the JAX lattice's arrays as NumPy:
+    hcore_R / fock_R ((spin,) ncells, n, n) stripes, the Cholesky factors
+    chol_L (naux, nsites, nsites; moved to `device` once), the unit-cell
+    ERI eri_imp, the constant H0 per cell, the stored density rdm1_R
+    ((spin,) ncells, n, n) and the orbital partition (all orbitals valence
+    when val_idx is None).  The mean field and embedding run on
+    `device`."""
+    lat = MeshLattice(kmesh, nscsites)
+    ham = AbInitioHam(np.asarray(hcore_R, dtype=float),
+                      np.asarray(fock_R, dtype=float),
+                      np.asarray(chol_L, dtype=np.float64),
+                      np.asarray(eri_imp, dtype=float), float(H0))
+    lat.set_Ham_abinitio(ham, rdm1=None if rdm1_R is None
+                         else np.asarray(rdm1_R, dtype=float), device=device)
     if val_idx is None:
         val_idx = list(range(nscsites))
     lat.set_val_virt_core(list(val_idx), list(virt_idx), list(core_idx))

@@ -1,1 +1,1 @@
-"""Lattices and model Hamiltonians (host NumPy)."""
+"""Lattices, Hamiltonians and the embedding-Hamiltonian container."""

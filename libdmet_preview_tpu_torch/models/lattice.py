@@ -4,7 +4,9 @@ libdmet_preview_tpu/models/lattice.py).
 
 Everything here is host NumPy computed once per lattice: geometry, index
 maps, and the stripe operators with their k-space (re, im) pairs.  The
-fused iteration (ops/fastpath.py) moves what it needs to its device.
+fused iteration (ops/fastpath.py) moves what it needs to its device; an ab
+initio lattice (set_Ham_abinitio) records its device, moves its Cholesky
+factors there once, and the mean field and embedding follow it.
 
 Conventions (match the JAX package):
   H(k) = sum_R e^{-i k.R} H(R)
@@ -14,8 +16,10 @@ Stripe block meaning: A[R] = <R q| A |0 p> with row index in cell R.
 
 import itertools as it
 import numpy as np
+import torch
 
 from libdmet_preview_tpu_torch.utils import logger as log
+from libdmet_preview_tpu_torch.utils.misc import as_f64
 from libdmet_preview_tpu_torch.ops import fourier
 
 
@@ -106,7 +110,14 @@ class LatticeModel(object):
         self.Ham = None
         self.has_Ham = False
         self.use_hcore_as_emb_ham = False
+        self.JK_imp = None
+        self.JK_emb = None
+        self.JK_core = None
         self.H0 = 0.0
+        # device of the mean field and embedding, and the device copy of
+        # the Cholesky/DF factors (set_Ham_abinitio)
+        self.device = None
+        self.chol_L = None
 
         # k-points (scaled, units of 2*pi / cell)
         self.kpts_scaled = np.array(
@@ -252,6 +263,34 @@ class LatticeModel(object):
 
     set_Ham = setHam = setHam_model = set_Ham_model
 
+    def set_Ham_abinitio(self, Ham, rdm1=None, use_hcore_as_emb_ham=False,
+                         device=torch.device("cuda")):
+        """Ingest an ab initio Hamiltonian: hcore/fock in the LO basis as
+        ((spin,) ncells, n, n) R stripes, two-body as Cholesky/DF factors
+        (H2_format 'cholesky').  The lattice keeps its own copy of the
+        factors on `device`, made once (Ham is left as it was); the mean
+        field and the embedding run on `device`."""
+        self.device = torch.device(device)
+        if (self.chol_L is None or self.Ham is not Ham
+                or self.chol_L.device != self.device):
+            self.chol_L = as_f64(Ham.getH2(), self.device)
+        self.Ham = Ham
+        self.hcore_lo_R = np.asarray(Ham.getH1())
+        self.hcore_lo_k = self.R2k(self.hcore_lo_R)
+        self.ovlp_lo_R = np.zeros((self.ncells, self.nao, self.nao))
+        self.ovlp_lo_R[0] = np.eye(self.nao)
+        self.ovlp_lo_k = self.R2k(self.ovlp_lo_R)
+        self.fock_lo_R = np.asarray(Ham.getFock())
+        self.fock_lo_k = self.R2k(self.fock_lo_R)
+        self.rdm1_lo_R = rdm1
+        if rdm1 is not None:
+            self.rdm1_lo_k = self.R2k(np.asarray(rdm1))
+        self.use_hcore_as_emb_ham = use_hcore_as_emb_ham
+        self.has_Ham = True
+        self.is_model = False
+        self.H2_format = Ham.H2_format
+        self.H0 = Ham.getH0()
+
     # ------------------------------------------------------------------
     # getters
     # ------------------------------------------------------------------
@@ -266,10 +305,25 @@ class LatticeModel(object):
 
     def getH2(self, compact=False, kspace=False):
         assert not kspace
+        if self.chol_L is not None:
+            return self.chol_L
         return self.Ham.getH2()
 
     def getH0(self):
         return self.H0
+
+    def getImpJK(self):
+        if self.JK_imp is not None:
+            return self.JK_imp
+        if self.Ham is not None:
+            return self.Ham.getImpJK()
+        return None
+
+    def get_JK_emb(self):
+        return self.JK_emb
+
+    def get_JK_core(self):
+        return self.JK_core
 
     def __str__(self):
         return ("LatticeModel dim=%d csize=%s nscsites=%d ncells=%d nsites=%d"

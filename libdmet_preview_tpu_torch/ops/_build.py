@@ -23,11 +23,15 @@ BUILD_DIR = _PKG_DIR.parent / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# C signature of each kernel library's entry point
+# C signature of every entry point of each kernel library:
+# {library: {symbol: (argtypes, restype)}}
+_P = ctypes.c_void_p
+_I = ctypes.c_int
 _SIGNATURES = {
-    "syrk_df": ("syrk_df_tri_f64",
-                [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                 ctypes.c_int, ctypes.c_void_p], ctypes.c_int),
+    "syrk_df": {
+        "syrk_df_tri_f64": ([_P, _P, _I, _I, _P], _I),
+        "syrk_df_cross_f64": ([_P, _P, _P, _I, _I, _P], _I),
+    },
 }
 
 _loaded = {}
@@ -49,14 +53,16 @@ def find_nvcc():
 
 def build(name):
     """Compile csrc/<name>.cu unless the library for this source hash
-    exists.  Returns (path, seconds, compiler log); the log is empty and
-    seconds is 0.0 when the library was already built."""
+    exists.  Returns (path, seconds, compiler log); seconds is 0.0 when the
+    library was already built, and the log is then the one kept beside it
+    from that build."""
     src = CSRC_DIR / (name + ".cu")
     digest = hashlib.sha256(src.read_bytes()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out = BUILD_DIR / ("lib%s-%s.so" % (name, digest))
+    log_path = out.with_suffix(".log")
     if out.is_file():
-        return out, 0.0, ""
+        return out, 0.0, (log_path.read_text() if log_path.is_file() else "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(".so.tmp%d" % os.getpid())
     cmd = [find_nvcc()] + NVCC_FLAGS + ["-o", str(tmp), str(src)]
@@ -66,18 +72,25 @@ def build(name):
     if proc.returncode != 0:
         raise RuntimeError("nvcc failed for %s (rc=%d):\n%s%s"
                            % (src, proc.returncode, proc.stdout, proc.stderr))
+    log_path.write_text(proc.stdout + proc.stderr)
     os.replace(tmp, out)
     return out, seconds, proc.stdout + proc.stderr
 
 
-def load(name):
-    """The entry point of kernel library `name` as a ctypes function,
+def load(name, symbol):
+    """Entry point `symbol` of kernel library `name` as a ctypes function,
     building the library at first use."""
-    if name not in _loaded:
+    key = (name, symbol)
+    if key not in _loaded:
         path, _, _ = build(name)
-        symbol, argtypes, restype = _SIGNATURES[name]
+        argtypes, restype = _SIGNATURES[name][symbol]
         fn = getattr(ctypes.CDLL(str(path)), symbol)
         fn.argtypes = argtypes
         fn.restype = restype
-        _loaded[name] = fn
-    return _loaded[name]
+        _loaded[key] = fn
+    return _loaded[key]
+
+
+def entry_points(name):
+    """The C entry points of kernel library `name`."""
+    return list(_SIGNATURES[name])

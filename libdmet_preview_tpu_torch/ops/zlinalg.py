@@ -11,7 +11,9 @@ public electron count keeps the JAX package's DOUBLED-spectrum convention
 single spectrum is counted against nelec2 / 2.
 
 Inputs and outputs stay (re, im) pairs where the JAX functions take and
-return pairs, so the two packages compare one to one.
+return pairs, so the two packages compare one to one.  zeigh keeps the
+doubled spectrum at its output for the same reason; its eigenvectors are
+the complex ones of H, not the real embedding's.
 """
 
 import itertools as it
@@ -76,6 +78,30 @@ def _fermi_K(ew, mu, beta):
                     (f[..., :, None] - f[..., None, :])
                     / torch.where(small, torch.ones_like(dl), dl))
     return f, K
+
+
+# ----------------------------------------------------------------------
+# Hermitian eigh with the doubled-spectrum convention (ops/mfd.py)
+# ----------------------------------------------------------------------
+
+def zeigh(h_re, h_im):
+    """Batched Hermitian eigendecomposition of H = h_re + i h_im (..., n, n).
+
+    Returns (w2, V): w2 (..., 2n) is the DOUBLED spectrum the JAX package's
+    zeigh gives (each eigenvalue twice, ascending), V (..., n, n) the
+    complex eigenvectors of H (columns, ascending)."""
+    ew, V = torch.linalg.eigh(torch.complex(h_re, h_im))
+    return torch.repeat_interleave(ew, 2, dim=-1), V
+
+
+def zfunc_from_eig(V, f2):
+    """Matrix function F(H) = V diag(f) V^H from zeigh's eigenvectors and
+    function values f2 (..., 2n) on the doubled spectrum (paired levels
+    carry equal values; each physical level takes the pair's value).
+    Returns the (F_re, F_im) pair."""
+    f = (0.5 * (f2[..., 0::2] + f2[..., 1::2])).to(V.dtype)
+    F = (V * f[..., None, :]) @ V.conj().transpose(-1, -2)
+    return F.real, F.imag
 
 
 # ----------------------------------------------------------------------
