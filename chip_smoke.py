@@ -9,14 +9,22 @@ Phases, in order; any failure raises and the process exits non-zero:
   1. device: require CUDA; print the card's name and power limit as
      nvidia-smi reports them;
   2. build: compile every hand-written kernel from the sources in the
-     checkout (nvcc, sm_90a) into build/kernels/;
+     checkout (nvcc, sm_90a) into build/kernels/; print each kernel's
+     ptxas registers, spills and shared memory, each instantiation's
+     dynamic shared memory and resident blocks per SM (the card's
+     occupancy query, which must equal the schedule's RESIDENT), and at
+     each timing shape the schedule's blocks and waves;
   3. kernels against their plain versions on the card: syrk_df vs F^T F at
-     (naux, neo) = (512, 32), (300, 45), (7, 2), 1e-12 relative and exactly
-     symmetric; the cross kernel syrk_df(F, F2) vs F^T F2 at (96, 18),
-     (300, 45), (7, 2), 1e-12 relative; then at the timing shapes
-     (512, 32) (tri only), (2400, 60) (the phase-6 path's) and (1024, 96)
-     each kernel is checked the same way and timed against its plain
-     version, which is one cuBLAS call (torch.mm), beside its bound;
+     (naux, neo) = (512, 32), (300, 45), (7, 2), (2400, 60), 1e-12
+     relative and exactly symmetric; the cross kernel syrk_df(F, F2) vs
+     F^T F2 at (96, 18), (300, 45), (7, 2), (2400, 60), 1e-12 relative;
+     each kernel launched twice at (2400, 60) gives bit-identical output;
+     then at the timing shapes (512, 32), (2400, 60) (the phase-6 path's)
+     and (1024, 96) each kernel is checked the same way and timed against
+     its plain version, which is one cuBLAS call (torch.mm), beside its
+     bound; at the timing shapes whose 64 x 64 grid ends in a short wave,
+     each kernel is checked and timed with that wave split into 1 .. 12
+     pieces, in rising then falling order, against the schedule's choice;
   4. the main path at the bench workload (Nk=27, nlo=16, neo=32,
      naux=512, beta=1000, 20 LM fit steps; inputs made with NumPy from the
      same seeds as bench.py): one step on the card against the same step
@@ -58,11 +66,19 @@ N_FIT_STEPS = 20
 NAUX = 512
 N_CHAIN = 10
 
-KERNEL_SHAPES = [(512, 32), (300, 45), (7, 2)]
-CROSS_SHAPES = [(96, 18), (300, 45), (7, 2)]
+KERNEL_SHAPES = [(512, 32), (300, 45), (7, 2), (2400, 60)]
+CROSS_SHAPES = [(96, 18), (300, 45), (7, 2), (2400, 60)]
 # (naux, neo): the bench path's tri shape, the ab initio path's, a large one
 TIMING_SHAPES = [(512, 32), (2400, 60), (1024, 96)]
 PATH_SHAPE = (2400, 60)     # shape of the kernels on the phase-6 path
+MAX_SCAN_SPLIT = 12         # pieces per last-wave tile in the split scan
+DESIGN = ("DMMA mma.sync m16n8k4 f64; 64x64 tiles, 4 warps of 32x32, 3 "
+          "blocks/SM (32x32 tiles where 64x64 fill under one wave); 4-stage "
+          "cp.async ring of 16 aux rows; last wave split along aux, pieces "
+          "summed in order")
+# stage times on the phase-6 path of the earlier CUDA-core FMA kernels (ms;
+# NVIDIA H100 80GB HBM3, 700 W; PERF.md)
+FMA_STAGE_MS = {"syrk (tri kernel)": 1.544, "syrk ab (cross kernel)": 1.216}
 
 # H100 SXM data sheet peaks (700 W): FP64 on the tensor cores, HBM3
 PEAK_FP64_FLOPS = 67e12
@@ -89,9 +105,11 @@ def phase_device():
 
 
 def phase_build():
-    """Build every kernel library and report each entry point's
-    registers, spills and shared memory from ptxas."""
+    """Build every kernel library; report each kernel's registers, spills
+    and shared memory from ptxas, each instantiation's occupancy, and the
+    schedule's blocks and waves at the timing shapes."""
     from libdmet_preview_tpu_torch.ops import _build
+    from libdmet_preview_tpu_torch.ops import eri_kernels as ek
     path, seconds, log = _build.build("syrk_df")
     print("build syrk_df: %.2f s -> %s" % (seconds, path.name))
     kernel = None
@@ -104,6 +122,31 @@ def phase_build():
     for symbol in _build.entry_points("syrk_df"):
         _build.load("syrk_df", symbol)
         print("  entry point %s loaded" % symbol)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    for sym in (True, False):
+        for tile in ek.TILES:
+            for copy, mode in ek.COPY_MODES.items():
+                blocks, threads, smem = ek.syrk_df_occupancy(sym, copy, tile)
+                print("  %s kernel, %dx%d tiles (%s copies): %d threads, %d "
+                      "B dynamic shared memory, %d resident blocks per SM"
+                      % ("tri" if sym else "cross", tile, tile, mode, threads,
+                         smem, blocks))
+                if blocks != ek.RESIDENT[tile]:
+                    raise AssertionError("the schedule assumes %d resident "
+                                         "blocks per SM" % ek.RESIDENT[tile])
+    for naux, neo in TIMING_SHAPES:
+        npair = neo * (neo + 1) // 2
+        for sym in (True, False):
+            sch = ek.syrk_schedule(naux, npair, sym, n_sm=n_sm)
+            tail = (sch.n_blocks - sch.n_whole) // sch.n_split
+            resident = ek.RESIDENT[sch.tile_m]
+            print("  schedule %s (naux=%d, neo=%d): %dx%d tiles, %d blocks = "
+                  "%d whole tiles + %d tiles x %d pieces, %.2f waves of "
+                  "%d x %d"
+                  % ("tri" if sym else "cross", naux, neo, sch.tile_m,
+                     sch.tile_n, sch.n_blocks, sch.n_whole,
+                     tail if sch.n_split > 1 else 0, sch.n_split,
+                     sch.n_blocks / (n_sm * resident), n_sm, resident))
 
 
 def _packed_factors(naux, neo, seed, device):
@@ -115,8 +158,11 @@ def _packed_factors(naux, neo, seed, device):
 
 
 def _time_ms(fn, reps=20):
+    """Device ms per call: the reps launches are queued while the card
+    sleeps, so the host's launch rate does not enter."""
     fn()
     torch.cuda.synchronize()
+    torch.cuda._sleep(4_000_000)
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
     t0.record()
@@ -177,16 +223,25 @@ def phase_kernels(device):
         err = _check_kernel("syrk_df_cross (naux=%d, neo=%d)" % (naux, neo),
                             out, syrk_df_plain(F, F2), symmetric=False)
         max_abs["syrk_df_cross"] = max(max_abs["syrk_df_cross"], err)
+    # determinism: two launches at the path's shape, bit for bit
+    naux, neo = PATH_SHAPE
+    F = _packed_factors(naux, neo, seed=3, device=device)
+    F2 = _packed_factors(naux, neo, seed=4, device=device)
+    for name, args in [("syrk_df", (F,)), ("syrk_df_cross", (F, F2))]:
+        same = torch.equal(syrk_df(*args), syrk_df(*args))
+        print("%s (naux=%d, neo=%d): two launches bit-identical: %s"
+              % (name, naux, neo, same))
+        if not same:
+            raise AssertionError("%s is not deterministic" % name)
     times = {}
     for naux, neo in TIMING_SHAPES:
         F = _packed_factors(naux, neo, seed=1, device=device)
         F2 = _packed_factors(naux, neo, seed=2, device=device)
         npair = F.shape[1]
         cases = [("syrk_df", "tri", lambda: syrk_df(F),
-                  lambda: syrk_df_plain(F))]
-        if (naux, neo) != (512, 32):
-            cases.append(("syrk_df_cross", "cross", lambda: syrk_df(F, F2),
-                          lambda: syrk_df_plain(F, F2)))
+                  lambda: syrk_df_plain(F)),
+                 ("syrk_df_cross", "cross", lambda: syrk_df(F, F2),
+                  lambda: syrk_df_plain(F, F2))]
         for name, kind, kern, plain in cases:
             out = kern()
             torch.cuda.synchronize()
@@ -203,10 +258,59 @@ def phase_kernels(device):
             bound, by, flops = kernel_bound(kind, naux, npair)
             print("%s timing (naux=%d, neo=%d, npair=%d): kernel %.4f ms "
                   "(%.2f TFLOP/s), plain (cuBLAS torch.mm) %.4f ms, "
-                  "bound %.4f ms (%s), kernel at %.1f%% of bound"
+                  "kernel/cuBLAS %.3f, bound %.4f ms (%s), kernel at %.1f%% "
+                  "of bound"
                   % (name, naux, neo, npair, t[0], flops / t[0] * 1e-9,
-                     t[1], bound, by, 100.0 * bound / t[0]))
+                     t[1], t[0] / t[1], bound, by, 100.0 * bound / t[0]))
     return max_abs, times
+
+
+def phase_split_scan(device):
+    """At each timing shape whose 64 x 64 grid ends in a short wave, each
+    kernel with that wave in n = 1 ..
+    MAX_SCAN_SPLIT pieces: checked against its plain version, then timed
+    for n rising and again for n falling; the schedule's n against the
+    fastest, beside the spread between the two readings of each n."""
+    from libdmet_preview_tpu_torch.ops import eri_kernels as ek
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    for naux, neo in TIMING_SHAPES:
+        F = _packed_factors(naux, neo, seed=1, device=device)
+        F2 = _packed_factors(naux, neo, seed=2, device=device)
+        npair = F.shape[1]
+        for name, sym, args in [("syrk_df", True, (F, None)),
+                                ("syrk_df_cross", False, (F, F2))]:
+            sch = ek.syrk_schedule(naux, npair, sym, n_sm=n_sm)
+            n_tail = ek.n_tiles(npair, sym, 64) % (n_sm * ek.RESIDENT[64])
+            if sch.tile_m != 64 or n_tail == 0:
+                continue
+            ref = ek.syrk_df_plain(*args)
+            runs = {}
+            for n in range(1, MAX_SCAN_SPLIT + 1):
+                try:
+                    runs[n] = ek.syrk_schedule(naux, npair, sym, n_sm=n_sm,
+                                               tile=64, n_split=n)
+                except ValueError:
+                    continue
+                _check_kernel("%s (naux=%d, neo=%d) split %d" % (
+                    name, naux, neo, n), ek.syrk_df_launch(*args, runs[n]),
+                    ref, symmetric=sym)
+            ms = {n: [] for n in runs}
+            for order in (sorted(runs), sorted(runs, reverse=True)):
+                for n in order:
+                    ms[n].append(_time_ms(
+                        lambda: ek.syrk_df_launch(*args, runs[n])))
+            mean = {n: float(np.mean(t)) for n, t in ms.items()}
+            spread = max(abs(t[0] - t[1]) / np.mean(t) for t in ms.values())
+            best = min(mean, key=mean.get)
+            print("%s split scan (naux=%d, neo=%d, %d last-wave tiles): %s"
+                  % (name, naux, neo, n_tail,
+                     ", ".join("%d: %.4f ms" % (n, mean[n]) for n in mean)))
+            print("%s split scan (naux=%d, neo=%d): schedule n_split %d "
+                  "%.4f ms, fastest n_split %d %.4f ms (schedule +%.1f%%), "
+                  "spread of two readings up to %.1f%%"
+                  % (name, naux, neo, sch.n_split, mean[sch.n_split], best,
+                     mean[best], 100.0 * (mean[sch.n_split] / mean[best] - 1),
+                     100.0 * spread))
 
 
 # ----------------------------------------------------------------------
@@ -573,6 +677,9 @@ def phase_abinitio_uhf(device):
     for k, v in sec_d.items():
         print("abinitio on the card: %-32s %.6f s (%d call%s)"
               % (k, sum(v), len(v), "" if len(v) == 1 else "s"))
+    for k, fma in FMA_STAGE_MS.items():
+        print("abinitio on the card: stage %s %.3f ms (FMA kernels: %.3f ms)"
+              % (k, 1e3 * sum(sec_d.get(k, [0.0])), fma))
     print("abinitio on the card: neo=%d, nelec=%d, HF E/cell %.10f, gap %s, "
           "SCF E %.10f (converged %s, BFGS iterations %s), E/cell "
           "%.10f, nelec/cell %.10f"
@@ -626,6 +733,7 @@ def main():
     device, card = phase_device()
     phase_build()
     max_abs, times = phase_kernels(device)
+    phase_split_scan(device)
     launches_bench, ms_iter = phase_bench(device)
     phase_hubbard(device)
     launches_ai = phase_abinitio_uhf(device)
@@ -642,6 +750,9 @@ def main():
              {"abinitio_uhf": launches_ai["syrk_df_cross"]})]:
         ms, plain_ms = times[(name, naux, neo)]
         bound_ms, bound_by, _ = kernel_bound(kind, naux, npair)
+        print("%s at the path shape (naux=%d, neo=%d): kernel/cuBLAS %.3f, "
+              "%.1f%% of bound" % (name, naux, neo, ms / plain_ms,
+                                   100.0 * bound_ms / ms))
         kernels.append({
             "name": name, "route": "cuda",
             "source": "libdmet_preview_tpu_torch/csrc/syrk_df.cu",
@@ -652,7 +763,9 @@ def main():
             "shape": [naux, neo],
             "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": plain_ms})
+            "library_ms": plain_ms, "design": DESIGN,
+            "vs_library": ms / plain_ms,
+            "share_of_bound": bound_ms / ms})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -29,8 +29,15 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "syrk_df": {
-        "syrk_df_tri_f64": ([_P, _P, _I, _I, _P], _I),
-        "syrk_df_cross_f64": ([_P, _P, _P, _I, _I, _P], _I),
+        # (F, out, ws, naux, npair, tile, n_whole, n_split, k_per_split,
+        #  stream)
+        "syrk_df_tri_f64": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _P], _I),
+        # (F, F2, out, ws, naux, npair, tile, n_whole, n_split,
+        #  k_per_split, stream)
+        "syrk_df_cross_f64": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+                              _I),
+        # (symmetric, copy mode, tile, int info[3])
+        "syrk_df_occupancy": ([_I, _I, _I, _P], _I),
     },
 }
 
