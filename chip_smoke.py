@@ -41,12 +41,39 @@ Phases, in order; any failure raises and the process exits non-zero:
      the rotated factors, the aa/bb blocks exactly symmetric, and >= 2
      symmetric and >= 1 cross syrk launches counted on the path; the
      stages of that run, each timed with the card synchronised around it
-     (utils.timer).
+     (utils.timer);
+  7. the self-consistent DMET loop on the card, through dmet.hubbard and
+     dmet.loop.run_dmet:
+     7a. 2D Hubbard, SquareLattice(40, 40, 2, 2), half filling,
+         AFInitGuess, UHF + FCI(tol=1e-10), to convergence: the
+         non-interacting bath at U=6 (E/site -0.652114179764) and the
+         interacting bath with charge self-consistency at U=2
+         (-1.179836342898), both to 1e-4 with one electron per site; the
+         stages of each run (utils.timer) with the FCI.run, sigma and CG
+         step counts per iteration, and the card's idle share over one
+         iteration (torch.profiler); the first two iterations of the
+         non-interacting-bath run on the card against the CPU (E, nelec,
+         accumulated dmu, vcor.param, rhoImp: 1e-8); FCI on one embedding
+         problem of that run against dense eigh of the 4900 x 4900 matrix
+         its sigma builds (E 1e-9, rdm1 1e-7), two sigma calls
+         bit-identical;
+     7b. the same loop over the symmetric syrk kernel: run_dmet(
+         int_bath=True, restricted=True, FCI) on a Cholesky chain (8
+         cells x 4 LOs, neo=8, naux=256, NumPy from fixed seeds), three
+         iterations on the card, with >= 3 launches of the kernel counted
+         and no call of its plain version there; the same three iterations
+         on the CPU, each started from the vcor the card started it from
+         (E, nelec, accumulated dmu, fit error: 1e-8; the fitted
+         vcor.param: 1e-3, because this fit's CG stops in a flat valley
+         where 1e-12 in its input moves the stopping point by up to
+         4e-4); the kernel at that shape against its plain version, timed
+         beside its bound.
 
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}.
 """
 
+import contextlib
 import json
 import subprocess
 import time
@@ -729,7 +756,361 @@ def phase_abinitio_uhf(device):
     return launches
 
 
+# ----------------------------------------------------------------------
+# phase 7: the self-consistent DMET loop on the card
+# ----------------------------------------------------------------------
+
+HUB2D = {"size": (40, 40), "imp": (2, 2), "filling": 0.5, "max_iter": 20,
+         "runs": [("NIB U=6", False, 6.0, -0.652114179764),
+                  ("IB U=2", True, 2.0, -1.179836342898)]}
+LOOP_TOL = 1e-8             # card vs CPU, per iteration
+CHOL_CHAIN = {"ncells": 8, "nlo": 4, "naux": 256, "iters": 3}
+CHOL_SHAPE = (CHOL_CHAIN["naux"], 2 * CHOL_CHAIN["nlo"])   # (naux, neo)
+
+
+@contextlib.contextmanager
+def _quiet():
+    """The port's logger at WARNING inside the block: the loop's RESULT
+    lines would push this script's own out of a short tail."""
+    from libdmet_preview_tpu_torch.utils import logger as log
+    level, log.verbose = log.verbose, "WARNING"
+    try:
+        yield
+    finally:
+        log.verbose = level
+
+
+def run_hub2d(U, int_bath, device, max_iter=HUB2D["max_iter"],
+              size=HUB2D["size"], profile_iteration=False):
+    """run_dmet on the 2D Hubbard anchor on `device`; returns (result,
+    stage seconds, counts, idle share of one profiled iteration or None).
+    counts: FCI.run calls, sigma builds and CG steps of the whole run."""
+    import libdmet_preview_tpu_torch.dmet.hubbard as dmet
+    from libdmet_preview_tpu_torch.dmet.loop import run_dmet
+    from libdmet_preview_tpu_torch.ops.fit import _cg_engine
+    from libdmet_preview_tpu_torch.solvers import FCI
+    from libdmet_preview_tpu_torch.utils import timer
+    from libdmet_preview_tpu_torch.utils.config import DmetConfig
+
+    def prepare(n_iter):
+        Lat = dmet.SquareLattice(*size, *HUB2D["imp"])
+        Lat.set_Ham(dmet.Ham(Lat, U), use_hcore_as_emb_ham=True,
+                    device=device)
+        vcor = dmet.AFInitGuess(HUB2D["imp"], U, HUB2D["filling"])
+        cfg = DmetConfig(filling=HUB2D["filling"], restricted=False,
+                         int_bath=int_bath, solver="FCI", solver_tol=1e-10,
+                         max_iter=n_iter)
+        return Lat, vcor, cfg, FCI(restricted=False, tol=1e-10,
+                                   device=device)
+
+    Lat, vcor, cfg, solver = prepare(max_iter)
+    _cg_engine.steps = 0
+    with timer.recording() as sec:
+        res = run_dmet(Lat, vcor, cfg, solver=solver)
+    counts = {"FCI.run": solver.n_run, "sigma": solver.n_sigma,
+              "CG steps": _cg_engine.steps}
+    idle = None
+    if profile_iteration:
+        idle = _idle_share(lambda: run_dmet(*prepare(1)[:3]))
+    return res, sec, counts, idle
+
+
+def _idle_share(fn):
+    """Share of fn's wall time in which the card runs no kernel, from
+    torch.profiler's device times; None when the profiler reports no
+    device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()                                    # warm: tables, cuSOLVER handles
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    busy_us = 0.0
+    for ev in prof.key_averages():
+        busy_us += getattr(ev, "self_device_time_total",
+                           getattr(ev, "self_cuda_time_total", 0.0))
+    if busy_us <= 0.0:
+        return None
+    return max(0.0, 1.0 - busy_us * 1e-6 / wall)
+
+
+def _print_loop_stages(label, res, sec, counts, card):
+    """Stage seconds of a run_dmet run: the first iteration (which also
+    pays for the first use of the card's libraries) apart from the mean of
+    the later ones.  The ERI stages run inside stage H2."""
+    n_it = len(res.history)
+    inner = ("ERI rotation", "ERI pack", "ERI unpack", "syrk (tri kernel)")
+    outer = {k: v for k, v in sec.items() if k not in inner}
+    first = sum(v[0] for v in outer.values())
+    later = sum(sum(v[1:]) for v in outer.values()) / max(n_it - 1, 1)
+    print("%s [%s]: %d DMET iterations, converged %s; stages sum to %.4f s "
+          "in the first iteration and %.4f s per later iteration"
+          % (label, card, n_it, res.converged, first, later))
+    for k, v in sec.items():
+        print("%s [%s]: stage %-18s first %.6f s, later %.6f s per iteration "
+              "(%d calls)" % (label, card, k, v[0],
+                              sum(v[1:]) / max(len(v) - 1, 1), len(v)))
+    print("%s [%s]: per iteration %.2f FCI.run calls, %.1f sigma builds, "
+          "%.1f CG steps of the vcor fit"
+          % (label, card, counts["FCI.run"] / n_it, counts["sigma"] / n_it,
+             counts["CG steps"] / n_it))
+
+
+def _compare_histories(label, hist_d, hist_c, tols, n_iter):
+    """Per-iteration card (d) vs CPU (c) differences of run_dmet's history
+    records; tols {key: tolerance}; raises past them."""
+    bad = []
+    if len(hist_d) < n_iter or len(hist_c) < n_iter:
+        raise AssertionError("%s: fewer than %d iterations" % (label, n_iter))
+    for h_d, h_c in list(zip(hist_d, hist_c))[:n_iter]:
+        for k, tol in tols.items():
+            diff = float(np.max(np.abs(np.asarray(h_d[k])
+                                       - np.asarray(h_c[k]))))
+            print("%s: iteration %d cuda vs cpu %-10s %.3e (tol %.0e)"
+                  % (label, h_d["iter"], k, diff, tol))
+            if not diff <= tol:
+                bad.append((h_d["iter"], k))
+    if bad:
+        raise AssertionError("%s: cuda and cpu disagree on %s" % (label, bad))
+
+
+def phase_fci_dense(device, U=6.0):
+    """FCI on the card on the first embedding problem of the NIB run (8
+    orbitals, 4 + 4 electrons, 70 x 70 = 4900 determinants) against dense
+    eigh of the matrix its sigma builds from the identity; two sigma calls
+    bit-identical."""
+    import libdmet_preview_tpu_torch.dmet.hubbard as dmet
+    from libdmet_preview_tpu_torch.solvers import FCI, fci
+    Lat = dmet.SquareLattice(*HUB2D["size"], *HUB2D["imp"])
+    Lat.set_Ham(dmet.Ham(Lat, U), use_hcore_as_emb_ham=True, device=device)
+    vcor = dmet.AFInitGuess(HUB2D["imp"], U, HUB2D["filling"])
+    rho, mu = dmet.HartreeFock(Lat, vcor, HUB2D["filling"], None)
+    ImpHam, _, basis = dmet.ConstructImpHam(Lat, rho, vcor, matching=False,
+                                            int_bath=False)
+    solver = FCI(restricted=False, tol=1e-10, device=device)
+    nelec = 2 * Lat.nval
+    rdm1, E = solver.run(ImpHam, nelec=nelec)
+    norb = ImpHam.norb
+    h1e, eri = solver._ints(ImpHam)
+    sigma, _ = fci.make_sigma(h1e, eri, norb, solver.nelec, device)
+    na, nb = solver.ci.shape
+    c = torch.as_tensor(np.random.RandomState(3).randn(na, nb), device=device)
+    same = torch.equal(sigma(c), sigma(c))
+    eye = torch.eye(na * nb, dtype=torch.float64, device=device)
+    H = torch.stack([sigma(eye[i].reshape(na, nb)).reshape(-1)
+                     for i in range(na * nb)], dim=1)
+    asym = float(torch.max(torch.abs(H - H.T)))
+    w, v = torch.linalg.eigh(0.5 * (H + H.T))
+    ga, gb = fci.make_rdm1s(v[:, 0].reshape(na, nb), norb, solver.nelec)
+    dE = abs(E - (float(w[0]) + float(ImpHam.H0)))
+    dr = float(torch.max(torch.abs(torch.stack([ga, gb]) - rdm1)))
+    print("FCI on the card: %d determinants, %d sigma builds, E %.12f; "
+          "vs dense eigh: |dE| %.3e (tol 1e-9), rdm1 %.3e (tol 1e-7), gap "
+          "to the first excited state %.3e; sigma matrix asymmetry %.3e; "
+          "two sigma calls bit-identical: %s"
+          % (na * nb, solver.n_sigma, E, dE, dr, float(w[1] - w[0]), asym,
+             same))
+    if not (dE <= 1e-9 and dr <= 1e-7 and asym <= 1e-10 and same):
+        raise AssertionError("FCI on the card disagrees with dense eigh")
+
+
+def phase_dmet_loop_hubbard(device, card):
+    cpu = torch.device("cpu")
+    results = {}
+    for label, int_bath, U, anchor in HUB2D["runs"]:
+        t0 = time.perf_counter()
+        res, sec, counts, idle = run_hub2d(U, int_bath, device,
+                                           profile_iteration=True)
+        name = "hub2d 40x40 %s" % label
+        print("%s [%s]: E/site %.12f (anchor %.12f, diff %.3e), nelec/site "
+              "%.10f, %.2f s in all"
+              % (name, card, res.e_per_site, anchor,
+                 res.e_per_site - anchor, res.nelec_imp,
+                 time.perf_counter() - t0))
+        _print_loop_stages(name, res, sec, counts, card)
+        print("%s [%s]: idle share of the card over one iteration: %s"
+              % (name, card, "not measured (the profiler gave no device "
+                 "time)" if idle is None else "%.4f" % idle))
+        if not (res.converged and abs(res.e_per_site - anchor) < 1e-4
+                and abs(res.nelec_imp - 1.0) < 1e-4
+                and res.rho_imp.shape == (2, 4, 4)
+                and np.all(np.isfinite(res.rho_imp))):
+            raise AssertionError("%s missed its anchor" % name)
+        results[label] = res
+    # the first two iterations of the NIB run, card vs CPU
+    label, int_bath, U, _ = HUB2D["runs"][0]
+    res_d = run_hub2d(U, int_bath, device, max_iter=2)[0]
+    res_c = run_hub2d(U, int_bath, cpu, max_iter=2)[0]
+    _compare_histories("hub2d 40x40 %s" % label, res_d.history,
+                       res_c.history,
+                       dict.fromkeys(["E", "nelec", "last_dmu", "vcor_param",
+                                      "rho_imp"], LOOP_TOL), 2)
+    phase_fci_dense(device)
+    return results
+
+
+def make_chol_chain_workload(seed=11, ncells=CHOL_CHAIN["ncells"],
+                             nlo=CHOL_CHAIN["nlo"], naux=CHOL_CHAIN["naux"]):
+    """A random gapped chain with Cholesky ERIs, NumPy from `seed`:
+    spinless hcore/fock stripes (ncells, nlo, nlo) with half of each
+    cell's orbitals at -1 and half at +1 (a gap at half filling), chol_L
+    (naux, nsites, nsites) symmetric in (p, q) with (pp|pp) ~ 0.4, and the
+    unit-cell ERI."""
+    rng = np.random.RandomState(seed)
+    hcore = _tr_stripe(rng, ncells, nlo, 0.1)
+    hcore[0] += np.diag([-1.0 if i < nlo // 2 else 1.0 for i in range(nlo)])
+    fock = hcore + _tr_stripe(rng, ncells, nlo, 0.05)
+    nsites = ncells * nlo
+    L = rng.randn(naux, nsites, nsites)
+    L = 0.02 * (L + L.transpose(0, 2, 1))
+    L0 = L[:, :nlo, :nlo].reshape(naux, nlo * nlo)
+    eri_imp = (L0.T @ L0).reshape((nlo,) * 4)
+    return hcore, fock, L, eri_imp
+
+
+def replay_dmet_iterations(lattice, vcor, config, starts):
+    """run_dmet's first len(starts) iterations (at most 3: before the
+    trace fix and DIIS begin) written out over the same entry points, with
+    iteration i started from the vcor parameters starts[i].  Returns
+    run_dmet's history records."""
+    import libdmet_preview_tpu_torch.dmet.hubbard as dmet
+    from libdmet_preview_tpu_torch.dmet.loop import _make_solver
+    if len(starts) > min(config.trace_start, config.diis_start):
+        raise ValueError("replay covers the iterations before the trace "
+                         "fix and DIIS only")
+    solver = _make_solver(config, lattice.device)
+    mu_solver = dmet.MuSolver(adaptive=True)
+    mu, last_dmu, history = None, 0.0, []
+    for it, start in enumerate(starts):
+        vcor.update(start)
+        rho, mu, _ = dmet.HartreeFock(lattice, vcor, config.filling, mu,
+                                      beta=config.beta, ires=True)
+        ImpHam, H1e, basis = dmet.ConstructImpHam(
+            lattice, rho, vcor, matching=False, int_bath=config.int_bath,
+            valence_bath=config.valence_bath, tol_bath=config.tol_bath)
+        ImpHam = dmet.apply_dmu(lattice, ImpHam, basis, last_dmu)
+        solver_args = {"nelec": (lattice.ncore + lattice.nval) * 2}
+        rhoEmb, EnergyEmb, ImpHam, dmu = mu_solver(
+            lattice, config.filling, ImpHam, basis, solver, solver_args,
+            thrnelec=config.mu_thrnelec, step=config.mu_step)
+        last_dmu += dmu
+        rhoImp, E, nelec = dmet.transformResults(
+            rhoEmb, EnergyEmb, basis, ImpHam, H1e, lattice=lattice,
+            last_dmu=last_dmu, int_bath=config.int_bath, solver=solver,
+            solver_args=solver_args)
+        vcor_new, err = dmet.FitVcor(rhoEmb, lattice, basis, vcor,
+                                     config.beta, config.filling,
+                                     MaxIter1=config.fit_max_iter, MaxIter2=0,
+                                     method=config.fit_method,
+                                     imp_fit=config.fit_imp_only)
+        history.append({"iter": it, "E": float(E), "nelec": float(nelec),
+                        "last_dmu": float(last_dmu), "fit_err": float(err),
+                        "vcor_param": np.array(vcor_new.param, copy=True)})
+    return history
+
+
+def run_chol_chain(workload, device, n_iter=CHOL_CHAIN["iters"],
+                   starts=None):
+    """run_dmet(int_bath=True, restricted=True, FCI) over the Cholesky
+    chain on `device`; the lattice's stored density is the mean field of
+    its Fock, spin-traced.  With `starts`, replay_dmet_iterations from
+    those vcor parameters instead.  Returns (history, stage seconds,
+    result or None, solver or None)."""
+    from libdmet_preview_tpu_torch import interop
+    from libdmet_preview_tpu_torch.dmet.loop import _make_solver, run_dmet
+    from libdmet_preview_tpu_torch.ops import mfd
+    from libdmet_preview_tpu_torch.utils import timer
+    from libdmet_preview_tpu_torch.utils.config import DmetConfig
+    hcore, fock, L, eri_imp = workload
+    ncells, nlo = hcore.shape[0], hcore.shape[-1]
+    Lat = interop.abinitio_lattice_from_numpy(
+        (ncells,), nlo, hcore, fock, L, eri_imp, 0.0, device=device)
+    rho, _, _ = mfd.HF(Lat, None, 0.5, True)
+    Lat.set_Ham_abinitio(Lat.Ham, rdm1=rho * 2.0, device=device)
+    vcor = interop.vcor_local_from_numpy(True, nlo,
+                                         np.zeros(nlo * (nlo + 1) // 2))
+    cfg = DmetConfig(filling=0.5, restricted=True, int_bath=True,
+                     solver="FCI", max_iter=n_iter)
+    if starts is not None:
+        return replay_dmet_iterations(Lat, vcor, cfg, starts), {}, None, None
+    solver = _make_solver(cfg, Lat.device)
+    with timer.recording() as sec:
+        res = run_dmet(Lat, vcor, cfg, solver=solver)
+    return res.history, sec, res, solver
+
+
+def phase_dmet_loop_cholesky(device, card):
+    """7b: the loop over the symmetric syrk kernel, card vs CPU.  Returns
+    (launches on the card's run, max_abs_err, (ms, plain_ms)) of the
+    kernel at this path's shape."""
+    from libdmet_preview_tpu_torch.ops import eri_kernels as ek
+    from libdmet_preview_tpu_torch.ops.fit import _cg_engine
+    workload = make_chol_chain_workload()
+    plain_calls = {"cuda": 0}
+    plain = ek.syrk_df_plain
+
+    def counted_plain(F, F2=None):
+        if F.device.type == "cuda":
+            plain_calls["cuda"] += 1
+        return plain(F, F2)
+
+    # the main path: counts start at 0 here
+    _sync(device)
+    ek.syrk_df.launches = 0
+    ek.syrk_df.cross_launches = 0
+    ek.syrk_df_plain = counted_plain
+    try:
+        _cg_engine.steps = 0
+        hist_d, sec_d, res_d, solver = run_chol_chain(workload, device)
+    finally:
+        ek.syrk_df_plain = plain
+    _sync(device)
+    launches = ek.syrk_df.launches
+    n_it = len(hist_d)
+    print("cholesky chain loop [%s]: %d iterations, syrk_df launches %d, "
+          "plain-version calls on CUDA tensors %d, E/cell %.10f, nelec/cell "
+          "%.10f" % (card, n_it, launches, plain_calls["cuda"],
+                     res_d.e_per_site, res_d.nelec_imp))
+    _print_loop_stages("cholesky chain loop", res_d, sec_d,
+                       {"FCI.run": solver.n_run, "sigma": solver.n_sigma,
+                        "CG steps": _cg_engine.steps}, card)
+    # the CPU mirror: every iteration from the vcor the card started it
+    # from (zero, then the card's fitted parameters)
+    starts = [np.zeros_like(hist_d[0]["vcor_param"])] \
+        + [h["vcor_param"] for h in hist_d[:-1]]
+    hist_c = run_chol_chain(workload, torch.device("cpu"), starts=starts)[0]
+    _compare_histories("cholesky chain loop", hist_d, hist_c,
+                       {"E": LOOP_TOL, "nelec": LOOP_TOL,
+                        "last_dmu": LOOP_TOL, "fit_err": LOOP_TOL,
+                        "vcor_param": 1e-3}, CHOL_CHAIN["iters"])
+    if launches < CHOL_CHAIN["iters"] or plain_calls["cuda"] != 0 \
+            or not np.isfinite(res_d.e_per_site):
+        raise AssertionError("cholesky chain loop: %d kernel launches, %d "
+                             "plain-version calls on the card"
+                             % (launches, plain_calls["cuda"]))
+    # the kernel at this path's shape against its plain version
+    naux, neo = CHOL_SHAPE
+    F = _packed_factors(naux, neo, seed=21, device=device)
+    out = ek.syrk_df(F)
+    torch.cuda.synchronize()
+    err = _check_kernel("syrk_df (naux=%d, neo=%d)" % (naux, neo), out,
+                        ek.syrk_df_plain(F), symmetric=True)
+    tp = [_time_ms(lambda: ek.syrk_df_plain(F))]
+    tk = [_time_ms(lambda: ek.syrk_df(F)), _time_ms(lambda: ek.syrk_df(F))]
+    tp.append(_time_ms(lambda: ek.syrk_df_plain(F)))
+    ms, plain_ms = float(np.mean(tk)), float(np.mean(tp))
+    bound, by, _ = kernel_bound("tri", naux, F.shape[1])
+    print("syrk_df timing (naux=%d, neo=%d, npair=%d) [%s]: kernel %.4f ms, "
+          "plain (cuBLAS torch.mm) %.4f ms, bound %.6f ms (%s)"
+          % (naux, neo, F.shape[1], card, ms, plain_ms, bound, by))
+    return launches, err, (ms, plain_ms)
+
+
 def main():
+    t_start = time.perf_counter()
     device, card = phase_device()
     phase_build()
     max_abs, times = phase_kernels(device)
@@ -737,6 +1118,11 @@ def main():
     launches_bench, ms_iter = phase_bench(device)
     phase_hubbard(device)
     launches_ai = phase_abinitio_uhf(device)
+    with _quiet():
+        phase_dmet_loop_hubbard(device, card)
+        launches_chol, err_chol, times_chol = phase_dmet_loop_cholesky(
+            device, card)
+    max_abs["syrk_df"] = max(max_abs["syrk_df"], err_chol)
     print("card: %s" % card)
     naux, neo = PATH_SHAPE
     npair = neo * (neo + 1) // 2
@@ -744,7 +1130,8 @@ def main():
     for name, kind, replaces, launches in [
             ("syrk_df", "tri", "libdmet_preview_tpu/ops/pallas_eri.py:163",
              {"bench": launches_bench,
-              "abinitio_uhf": launches_ai["syrk_df"]}),
+              "abinitio_uhf": launches_ai["syrk_df"],
+              "dmet_loop_cholesky": launches_chol}),
             ("syrk_df_cross", "cross",
              "libdmet_preview_tpu/ops/pallas_eri.py:45",
              {"abinitio_uhf": launches_ai["syrk_df_cross"]})]:
@@ -766,6 +1153,15 @@ def main():
             "library_ms": plain_ms, "design": DESIGN,
             "vs_library": ms / plain_ms,
             "share_of_bound": bound_ms / ms})
+    # the symmetric kernel at the shape the DMET loop's path gives it
+    naux_c, neo_c = CHOL_SHAPE
+    bound_c, by_c, _ = kernel_bound("tri", naux_c, neo_c * (neo_c + 1) // 2)
+    kernels[0]["at_dmet_loop_shape"] = {
+        "shape": [naux_c, neo_c], "launches": launches_chol,
+        "ms": times_chol[0], "plain_ms": times_chol[1],
+        "library_ms": times_chol[1], "bound_ms": bound_c, "bound_by": by_c}
+    print("chip_smoke total: %.1f s [%s]"
+          % (time.perf_counter() - t_start, card))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,12 @@
 """
-DMET user-facing API (PyTorch port of the parts of
-libdmet_preview_tpu/dmet/hubbard.py that the fused lattice iteration and
-the one-shot interacting-bath UHF-DMET need: the lattice/Hamiltonian
-re-exports, HartreeFock, ConstructImpHam, transformResults with the
-democratic-partitioning energy, and the vcor initial guesses).
+DMET user-facing API for Hubbard-family lattice models (PyTorch port of
+libdmet_preview_tpu/dmet/hubbard.py).
+
+Carries the JAX package's vocabulary so that user loops translate one to
+one: HartreeFock / RHartreeFock, ConstructImpHam, apply_dmu,
+SolveImpHam_with_fitting (MuSolver), transformResults, FitVcor,
+AFInitGuess / PMInitGuess, addDiag, IterHistory, foldRho_k.  dmet/loop.py
+packages the self-consistent loop over them (run_dmet).
 
 The one-shot driver, as in tests/test_cuo2_afm.py:
 
@@ -19,6 +22,10 @@ The one-shot driver, as in tests/test_cuo2_afm.py:
 Embedding quantities are tensors on the lattice's device.
 """
 
+import os
+import pickle
+from math import copysign, exp
+
 import numpy as np
 import torch
 
@@ -26,12 +33,17 @@ from libdmet_preview_tpu_torch.utils import logger as log
 from libdmet_preview_tpu_torch.utils.misc import as_f64
 from libdmet_preview_tpu_torch.utils.timer import stage
 from libdmet_preview_tpu_torch.models.lattice import (  # noqa: F401
-    ChainLattice, BipartiteSquare)
+    ChainLattice, SquareLattice, SquareAFM, BipartiteSquare)
 from libdmet_preview_tpu_torch.models.hamiltonian import (  # noqa: F401
     HubbardHamiltonian as Ham)
 from libdmet_preview_tpu_torch.models.integral import Integral
-from libdmet_preview_tpu_torch.ops import embham, mfd
+from libdmet_preview_tpu_torch.ops import embham, mfd, fit as fit_mod
 from libdmet_preview_tpu_torch.ops.vcor import VcorLocal
+from libdmet_preview_tpu_torch.ops.diis import DIIS, FDiisContext  # noqa: F401
+from libdmet_preview_tpu_torch.ops.fit import (  # noqa: F401
+    addDiag, make_vcor_trace_unchanged, vcor_diag_average)
+from libdmet_preview_tpu_torch.dmet.quad_fit import quad_fit_mu
+from libdmet_preview_tpu_torch.solvers import FCI, SCFSolver  # noqa: F401
 
 foldRho_k = embham.foldRho_k
 HF = mfd.HF
@@ -50,6 +62,11 @@ def HartreeFock(Lat, v, filling, mu0=None, beta=np.inf, ires=False, **kwargs):
     if ires:
         return rho, mu, res
     return rho, mu
+
+
+def RHartreeFock(Lat, v, filling, mu0=None, beta=np.inf, ires=False, **kwargs):
+    log.eassert(v.restricted, "RHF requires restricted vcor")
+    return HartreeFock(Lat, v, filling, mu0=mu0, beta=beta, ires=ires, **kwargs)
 
 
 # ----------------------------------------------------------------------
@@ -75,6 +92,30 @@ def _match_bath(basis_bath):
     shape = basis_bath.shape
     flat = basis_bath.reshape(2, -1, shape[-1])
     return embham.basis_matching(flat).reshape(shape)
+
+
+def apply_dmu(lattice, ImpHam, basis, dmu, **kwargs):
+    """Add -dmu on the impurity orbitals of H1_emb, in place on the
+    tensors of ImpHam.H1["cd"]."""
+    dmu_idx = kwargs.get("dmu_idx", None)
+    if dmu_idx is None:
+        dmu_idx = lattice.imp_idx
+    nao = lattice.nao
+    mu_mat = np.zeros((nao, nao))
+    mu_mat[dmu_idx, dmu_idx] = -dmu
+    mu_mat = as_f64(mu_mat, basis.device)
+    H1 = ImpHam.H1["cd"]
+    for s in range(1 if ImpHam.restricted else 2):
+        H1[s] += embham.transform_imp(basis[s], mu_mat)
+    return ImpHam
+
+
+def SolveImpHam_with_dmu(lattice, ImpHam, basis, dmu, solver, solver_args={},
+                         **kwargs):
+    ImpHam = apply_dmu(lattice, ImpHam, basis, dmu, **kwargs)
+    result = solver.run(ImpHam, **solver_args)
+    ImpHam = apply_dmu(lattice, ImpHam, basis, -dmu, **kwargs)
+    return result
 
 
 # ----------------------------------------------------------------------
@@ -205,6 +246,155 @@ def get_E_dmet(basis, lattice, ImpHam, last_dmu, solver, solver_args={},
 
 
 # ----------------------------------------------------------------------
+# chemical-potential fitting
+# ----------------------------------------------------------------------
+
+class MuSolver(object):
+    """Adaptive chemical-potential fitter over (possibly multiple)
+    impurity problems.  The secant / quadratic logic runs on the host on
+    the electron counts the solver's densities give."""
+
+    def __init__(self, adaptive=True):
+        self.adaptive = adaptive
+        self.history = []
+
+    def __call__(self, lattice, filling, ImpHam, basis, solver,
+                 solver_args={}, delta=0.02, thrnelec=1e-5, step=0.05,
+                 **kwargs):
+        filling = np.average(filling)
+        single_imp = not isinstance(lattice, (list, tuple))
+        if single_imp:
+            lattice = [lattice]
+            ImpHam = [ImpHam]
+            basis = [basis]
+            solver = [solver]
+            solver_args = [solver_args]
+        imp_idx = kwargs.pop("imp_idx", None)
+        if imp_idx is None:
+            imp_idx = [np.arange(l.nimp) for l in lattice]
+
+        def solve(mu):
+            rho_col, E_col = [], []
+            ntot = 0.0
+            for latt, H, B, sol, sargs, iidx in zip(lattice, ImpHam, basis,
+                                                    solver, solver_args,
+                                                    imp_idx):
+                rho_i, E_i = SolveImpHam_with_dmu(latt, H, B, mu, sol, sargs,
+                                                  **kwargs)
+                rho_col.append(rho_i)
+                E_col.append(E_i)
+                ntot += transformResults(rho_i, None, B, None, None,
+                                         lattice=latt, imp_idx=iidx)
+            return rho_col, E_col, ntot
+
+        def apply_all(dmu):
+            return [apply_dmu(l, H, B, dmu, **kwargs)
+                    for l, H, B in zip(lattice, ImpHam, basis)]
+
+        target = filling * 2.0
+        rho0, E0, n0 = solve(0.0)
+        record = [(0.0, n0)]
+        log.result("nelec = %20.12f (target %20.12f)", n0, target)
+
+        if abs(n0 / target - 1.0) < thrnelec:
+            self.history.append(record)
+            res = [rho0, E0, ImpHam, 0.0]
+        else:
+            if self.adaptive:
+                pred = self.predict(n0, target)
+                if pred is not None:
+                    delta = copysign(min(abs(pred), step), pred)
+                else:
+                    delta = abs(delta) * (-1 if n0 > target else 1)
+            else:
+                delta = abs(delta) * (-1 if n0 > target else 1)
+
+            rho1, E1, n1 = solve(delta)
+            record.append((delta, n1))
+            log.result("nelec = %20.12f (target %20.12f)", n1, target)
+            if abs(n1 / target - 1.0) < thrnelec:
+                ImpHam = apply_all(delta)
+                self.history.append(record)
+                res = [rho1, E1, ImpHam, delta]
+            else:
+                nprime = (n1 - n0) / delta
+                delta1 = (target - n0) / nprime
+                if abs(delta1) > step:
+                    delta1 = copysign(step, delta1)
+                rho2, E2, n2 = solve(delta1)
+                record.append((delta1, n2))
+                log.result("nelec = %20.12f (target %20.12f)", n2, target)
+                if abs(n2 / target - 1.0) < thrnelec:
+                    ImpHam = apply_all(delta1)
+                    self.history.append(record)
+                    res = [rho2, E2, ImpHam, delta1]
+                else:
+                    mus = [0.0, delta, delta1]
+                    ns = [n0, n1, n2]
+                    res = None
+                    for _ in range(2):
+                        dnext = quad_fit_mu(np.asarray(mus), np.asarray(ns),
+                                            filling, step)
+                        rho3, E3, n3 = solve(dnext)
+                        record.append((dnext, n3))
+                        log.result("nelec = %20.12f (target %20.12f)",
+                                   n3, target)
+                        mus.append(dnext)
+                        ns.append(n3)
+                        if abs(n3 / target - 1.0) < thrnelec:
+                            break
+                    ImpHam = apply_all(dnext)
+                    self.history.append(record)
+                    res = [rho3, E3, ImpHam, dnext]
+
+        if single_imp:
+            res[0] = res[0][0]
+            res[1] = res[1][0]
+            res[2] = res[2][0]
+        return res
+
+    def predict(self, nelec, target):
+        """Weighted secant prediction from the fit history: the first two
+        points of each earlier record give a slope, weighted by recency
+        and by how close that record's counts were to this one's."""
+        vals, weights = [], []
+        damp = np.e
+        sigma2 = 0.00025
+        for i, record in enumerate(self.history):
+            if len(record) < 2:
+                continue
+            weight = damp ** (i + 1 - len(self.history))
+            (mu1, n1), (mu2, n2) = record[0], record[1]
+            if abs(mu2 - mu1) < 1e-12 or abs(n2 - n1) < 1e-12:
+                continue
+            slope = (n2 - n1) / (mu2 - mu1)
+            val = (target - nelec) / slope
+            metric = min((target - n1) ** 2 + (nelec - n2) ** 2,
+                         (target - n2) ** 2 + (nelec - n1) ** 2)
+            weight *= exp(-0.5 * metric / sigma2)
+            vals.append(val)
+            weights.append(weight)
+        if np.sum(weights) > 1e-3:
+            dmu = np.dot(vals, weights) / np.sum(weights)
+            if abs(dmu) > 0.5:
+                dmu = copysign(0.5, dmu)
+            return dmu
+        return None
+
+    def save(self, filename):
+        with open(filename, "wb") as f:
+            pickle.dump(self.history, f)
+
+    def load(self, filename):
+        if os.path.exists(filename):
+            with open(filename, "rb") as f:
+                self.history = pickle.load(f)
+
+
+SolveImpHam_with_fitting = MuSolver(adaptive=True)
+
+
+# ----------------------------------------------------------------------
 # vcor initial guesses
 # ----------------------------------------------------------------------
 
@@ -253,3 +443,45 @@ def PMInitGuess(ImpSize, U, Filling, bogoliubov=False, rand=0.0):
         rng = np.random.RandomState(32499823)
         v.update(v.param + (rng.rand(v.length()) - 0.5) * rand)
     return v
+
+
+# ----------------------------------------------------------------------
+# vcor fit wrapper
+# ----------------------------------------------------------------------
+
+def FitVcor(rho, lattice, basis, vcor, beta, filling=0.5, MaxIter1=300,
+            MaxIter2=0, **kwargs):
+    return fit_mod.FitVcorTwoStep(rho, lattice, basis, vcor, beta, filling,
+                                  MaxIter1=MaxIter1, MaxIter2=MaxIter2,
+                                  **kwargs)
+
+
+# ----------------------------------------------------------------------
+# bookkeeping
+# ----------------------------------------------------------------------
+
+class IterHistory(object):
+    def __init__(self):
+        self.history = []
+
+    def update(self, energy, err, nelec, dvcor, dc):
+        if not self.history:
+            self.history.append([energy, energy, err, nelec, dvcor,
+                                 dc.nDim, dc.iNext])
+        else:
+            self.history.append([energy, energy - self.history[-1][0], err,
+                                 nelec, dvcor, dc.nDim, dc.iNext])
+        log.section("\nDMET Progress\n")
+        log.result("  Iter         Energy                 dE"
+                   "                RdmErr               Nelec"
+                   "                 dVcor      DIIS")
+        for idx, item in enumerate(self.history):
+            log.result(" %3d %20.12f %15.3e %20.12f %20.12f %20.5e %2d %2d",
+                       idx, *item)
+
+    def write_table(self, filename="./table.txt"):
+        with open(filename, "w") as f:
+            f.write("  Iter  Energy  dE  RdmErr  Nelec  dVcor  DIIS\n")
+            for idx, item in enumerate(self.history):
+                f.write(" %3d %20.12f %15.3e %20.12f %20.12f %20.5e %2d %2d\n"
+                        % ((idx,) + tuple(item)))

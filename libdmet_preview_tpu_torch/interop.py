@@ -1,35 +1,48 @@
 """
 Carry the JAX package's state into the port.
 
-The JAX package keeps its lattice operators, vcor parameters and DF
-factors as arrays that convert to NumPy; these functions take those NumPy
-arrays and return the port's objects, so a workload built in one package
-runs in the other on identical inputs.
+The JAX package keeps its lattice operators, vcor parameters, DF factors,
+embedding Hamiltonians and loop settings as arrays and plain values that
+convert to NumPy; these functions take those and return the port's
+objects, so a workload built in one package runs in the other on identical
+inputs.
 """
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from libdmet_preview_tpu_torch.models.abinitio import AbInitioHam
 from libdmet_preview_tpu_torch.models.hamiltonian import HamNonInt
+from libdmet_preview_tpu_torch.models.integral import Integral
 from libdmet_preview_tpu_torch.models.lattice import MeshLattice
 from libdmet_preview_tpu_torch.ops.vcor import VcorLocal
+from libdmet_preview_tpu_torch.utils.config import DmetConfig
+from libdmet_preview_tpu_torch.utils.misc import as_f64
 
 
 def lattice_from_numpy(kmesh, nscsites, hcore_R, fock_R, ovlp_R=None,
                        val_idx=None, virt_idx=(), core_idx=(),
-                       use_hcore_as_emb_ham=True):
-    """A port LatticeModel on `kmesh` with `nscsites` orbitals per cell,
-    carrying the stripe operators hcore_R / fock_R ((spin,) ncells, n, n)
-    and the overlap ovlp_R (identity when None), with the given orbital
-    partition (all orbitals valence when val_idx is None)."""
+                       use_hcore_as_emb_ham=True, H2=None, rdm1_R=None,
+                       device=torch.device("cuda")):
+    """A port model LatticeModel on `kmesh` with `nscsites` orbitals per
+    cell, carrying the stripe operators hcore_R / fock_R ((spin,) ncells,
+    n, n), the overlap ovlp_R (identity when None), the local two-body
+    term H2 ((n,)*4, zero when None) and the stored density rdm1_R, with
+    the given orbital partition (all orbitals valence when val_idx is
+    None).  The mean field and embedding run on `device`."""
     lat = MeshLattice(kmesh, nscsites)
     hcore_R = np.asarray(hcore_R, dtype=float)
-    ham = HamNonInt(lat, hcore_R, np.zeros((nscsites,) * 4),
-                    Fock=np.asarray(fock_R, dtype=float))
+    H2 = np.zeros((nscsites,) * 4) if H2 is None \
+        else np.asarray(H2, dtype=float)
+    ham = HamNonInt(lat, hcore_R, H2, Fock=np.asarray(fock_R, dtype=float))
     lat.set_Ham_model(ham, ovlp=None if ovlp_R is None
                       else np.asarray(ovlp_R, dtype=float),
-                      use_hcore_as_emb_ham=use_hcore_as_emb_ham)
+                      rdm1=None if rdm1_R is None
+                      else np.asarray(rdm1_R, dtype=float),
+                      use_hcore_as_emb_ham=use_hcore_as_emb_ham,
+                      device=device)
     if val_idx is None:
         val_idx = list(range(nscsites))
     lat.set_val_virt_core(list(val_idx), list(virt_idx), list(core_idx))
@@ -78,3 +91,26 @@ def chol_from_numpy(L, device):
     `device`."""
     return torch.as_tensor(np.asarray(L, dtype=np.float64),
                            dtype=torch.float64, device=device)
+
+
+def integral_from_numpy(norb, restricted, H0, H1, H2, device, ovlp=None):
+    """A port Integral holding an embedding Hamiltonian of the JAX
+    package as float64 tensors on `device`: H1 (spin, n, n), H2
+    (spin_pair, n, n, n, n) in the block order [aa, bb, ab].  The blocks
+    are copies: apply_dmu works in place on them."""
+    def copy(x):
+        return as_f64(np.array(x, dtype=np.float64), device)
+
+    return Integral(int(norb), bool(restricted), False, float(H0),
+                    {"cd": copy(H1)}, {"ccdd": copy(H2)},
+                    ovlp=None if ovlp is None else copy(ovlp))
+
+
+def dmet_config_from_dict(settings):
+    """A port DmetConfig from the fields of the JAX package's DmetConfig
+    (dataclasses.asdict of it); unknown fields raise."""
+    known = {f.name for f in dataclasses.fields(DmetConfig)}
+    unknown = set(settings) - known
+    if unknown:
+        raise ValueError("DmetConfig has no field(s) %s" % sorted(unknown))
+    return DmetConfig(**settings)

@@ -4,9 +4,11 @@ libdmet_preview_tpu/models/lattice.py).
 
 Everything here is host NumPy computed once per lattice: geometry, index
 maps, and the stripe operators with their k-space (re, im) pairs.  The
-fused iteration (ops/fastpath.py) moves what it needs to its device; an ab
-initio lattice (set_Ham_abinitio) records its device, moves its Cholesky
-factors there once, and the mean field and embedding follow it.
+fused iteration (ops/fastpath.py) moves what it needs to its device.
+set_Ham_model and set_Ham_abinitio record the lattice's device (the card
+unless the caller names another): the mean field, the embedding, the
+solvers and the vcor fit follow it; an ab initio lattice also moves its
+Cholesky factors there once.
 
 Conventions (match the JAX package):
   H(k) = sum_R e^{-i k.R} H(R)
@@ -114,8 +116,8 @@ class LatticeModel(object):
         self.JK_emb = None
         self.JK_core = None
         self.H0 = 0.0
-        # device of the mean field and embedding, and the device copy of
-        # the Cholesky/DF factors (set_Ham_abinitio)
+        # device of the mean field and embedding (set_Ham_model,
+        # set_Ham_abinitio), and the device copy of the Cholesky/DF factors
         self.device = None
         self.chol_L = None
 
@@ -237,7 +239,12 @@ class LatticeModel(object):
     # Hamiltonian attachment
     # ------------------------------------------------------------------
     def set_Ham_model(self, Ham, rdm1=None, fock=None, ovlp=None,
-                      eri_symmetry=4, use_hcore_as_emb_ham=True):
+                      eri_symmetry=4, use_hcore_as_emb_ham=True,
+                      device=torch.device("cuda")):
+        """Attach a model Hamiltonian (stripe H1/Fock, 'local' H2).  The
+        mean field and the embedding built on this lattice run on
+        `device`."""
+        self.device = torch.device(device)
         self.Ham = Ham
         self.hcore_lo_R = np.asarray(Ham.getH1())
         self.hcore_lo_k = self.R2k(self.hcore_lo_R)
@@ -291,6 +298,49 @@ class LatticeModel(object):
         self.H2_format = Ham.H2_format
         self.H0 = Ham.getH0()
 
+    def update_Ham(self, rdm1_lo_R, fock_lo_k=None):
+        """DMET charge self-consistency: rebuild the lattice Fock from a
+        new rdm1 ((spin,) ncells, n, n; spin-traced when restricted).
+
+        With a local lattice ERI the J/K from the cell-averaged density
+        are k-independent, so the Fock update touches only the R = 0
+        stripe block.  The J/K contraction runs on the lattice's device."""
+        from libdmet_preview_tpu_torch.ops import pbc_helper
+        rdm1_lo_R = np.asarray(rdm1_lo_R)
+        if rdm1_lo_R.ndim == 3:
+            rdm1_lo_R = rdm1_lo_R[None]
+        self.rdm1_lo_R = rdm1_lo_R
+        self.rdm1_lo_k = self.R2k(rdm1_lo_R)
+        if fock_lo_k is not None:
+            self.fock_lo_k = fock_lo_k
+            self.fock_lo_R = np.asarray(self.k2R(fock_lo_k))
+            return
+        if self.H2_format != "local":
+            raise NotImplementedError(
+                "update_Ham: only the 'local' H2 format is ported (got %s); "
+                "'nearest' comes with the rest of the model-lattice slice"
+                % self.H2_format)
+        eri = np.asarray(self.getH2(kspace=False))
+        dm0 = rdm1_lo_R[:, 0]  # cell-averaged density = rho(R=0)
+        vj, vk = pbc_helper.get_jk_local(eri, dm0, self.device)
+        spin = rdm1_lo_R.shape[0]
+        if spin == 1:
+            JK = vj[0] - vk[0] * 0.5
+            fock_R = np.array(self.hcore_lo_R, copy=True)
+            if self.hcore_lo_R.ndim == 3:
+                fock_R[0] = fock_R[0] + JK
+            else:
+                fock_R[:, 0] = fock_R[:, 0] + JK
+        else:
+            JK = (vj[0] + vj[1])[None] - vk
+            hcore = self.hcore_lo_R
+            if hcore.ndim == 3:
+                hcore = np.asarray([hcore, hcore])
+            fock_R = np.array(hcore, copy=True)
+            fock_R[:, 0] = fock_R[:, 0] + JK
+        self.fock_lo_R = fock_R
+        self.fock_lo_k = self.R2k(self.fock_lo_R)
+
     # ------------------------------------------------------------------
     # getters
     # ------------------------------------------------------------------
@@ -337,6 +387,30 @@ def ChainLattice(length, scsites):
     sc = SuperCell(uc, np.asarray([scsites]))
     lat = LatticeModel(sc, np.asarray([length // scsites]))
     lat.neighborDist = [1.0, 2.0, 3.0]
+    return lat
+
+
+def SquareLattice(lx, ly, scx, scy):
+    """2D 1-band square lattice."""
+    log.eassert(lx % scx == 0 and ly % scy == 0,
+                "incompatible lattice/supercell sizes")
+    uc = UnitCell(np.eye(2), [(np.array([0.0, 0.0]), "X")])
+    sc = SuperCell(uc, np.asarray([scx, scy]))
+    lat = LatticeModel(sc, np.asarray([lx // scx, ly // scy]))
+    lat.neighborDist = [1.0, np.sqrt(2.0), 2.0]
+    return lat
+
+
+def SquareAFM(lx, ly, scx, scy):
+    """2D 1-band square, rotated 2-site AFM cell."""
+    log.eassert(lx % scx == 0 and ly % scy == 0,
+                "incompatible lattice/supercell sizes")
+    uc = UnitCell(np.eye(2) * np.sqrt(2.0),
+                  [(np.zeros(2), "X1"),
+                   (np.ones(2) * (np.sqrt(2.0) * 0.5), "X2")])
+    sc = SuperCell(uc, np.asarray([scx, scy]))
+    lat = LatticeModel(sc, np.asarray([lx // scx, ly // scy]))
+    lat.neighborDist = [1.0, np.sqrt(2.0), 2.0]
     return lat
 
 

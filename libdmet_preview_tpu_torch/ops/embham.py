@@ -1,17 +1,19 @@
 """
 Schmidt bath construction and embedding-Hamiltonian transforms (PyTorch
 port of libdmet_preview_tpu/ops/embham.py: transform_h1 / foldRho_k,
-transform_local, transform_imp, get_veff, the SVD bath with basis matching,
-get_emb_Ham with the interacting-bath 'cholesky' H2 and the JK double
-counting).
+transform_local, transform_imp, transform_eri_local, unit2emb, get_veff,
+the SVD bath with basis matching, get_emb_Ham for the 'local' and
+'cholesky' H2 formats with the interacting and the non-interacting bath).
 
-Everything runs on the device of its tensor inputs (the lattice's device
-for an ab initio lattice).  The k-space identity
+Everything runs on the device of its tensor inputs (the lattice's device).
+The k-space identity
 
     H_emb = (1/Nk) sum_k C_k^H H_k C_k
 
 is one batched complex GEMM chain; the two-body part is
-eri_transform.get_emb_eri_chol (hand-written DF syrk kernels on CUDA).
+eri_transform.get_emb_eri_chol for Cholesky factors (hand-written DF syrk
+kernels on CUDA) and two einsum chains over the cell axis for a local
+lattice ERI.
 """
 
 import numpy as np
@@ -60,6 +62,40 @@ def transform_local(basis_R, H):
 def transform_imp(basis_R, H):
     """Impurity-cell-only operator: basis[0].T H basis[0]."""
     return basis_R[0].T @ H @ basis_R[0]
+
+
+def transform_eri_local(basis_R, H2):
+    """Local lattice ERI to embedding space, interacting-bath formalism.
+
+    basis_R: (spin, ncells, nlo, neo) tensor; H2: (nlo,)*4 (same for both
+    spins) or (3, nlo^4) spin-blocked, on the basis' device.  Returns
+    (spin*(spin+1)/2, neo^4) in the order [aa, bb, ab]."""
+    spin = basis_R.shape[0]
+    if H2.ndim == 4:
+        H2aa = H2bb = H2ab = H2
+    else:
+        H2aa, H2bb, H2ab = H2[0], H2[1], H2[2]
+
+    def t4(H, ba, bb):
+        # sum over cells R: (pqrs, Rpi, Rqj, Rrk, Rsl -> ijkl) in two steps
+        tmp = torch.einsum("pqrs, Rpi, Rqj -> Rijrs", H, ba, ba)
+        return torch.einsum("Rijrs, Rrk, Rsl -> ijkl", tmp, bb, bb)
+
+    if spin == 1:
+        return t4(H2aa, basis_R[0], basis_R[0])[None]
+    return torch.stack([t4(H2aa, basis_R[0], basis_R[0]),
+                        t4(H2bb, basis_R[1], basis_R[1]),
+                        t4(H2ab, basis_R[0], basis_R[1])])
+
+
+def unit2emb(H2_unit, neo):
+    """Pad a unit-cell ERI (spin_pair, n, n, n, n) tensor into the impurity
+    corner of the embedding ERI."""
+    n = H2_unit.shape[-1]
+    H2 = torch.zeros((H2_unit.shape[0],) + (neo,) * 4, dtype=H2_unit.dtype,
+                     device=H2_unit.device)
+    H2[:, :n, :n, :n, :n] = H2_unit
+    return H2
 
 
 # ----------------------------------------------------------------------
@@ -242,7 +278,8 @@ def get_emb_Ham(lattice, basis, vcor, local=True, int_bath=True, **kwargs):
     basis' device."""
     spin = basis.shape[0]
     neo = basis.shape[-1]
-    H2 = _emb_H2(lattice, basis, vcor, int_bath=int_bath, **kwargs)
+    with stage("H2", basis.device):
+        H2 = _emb_H2(lattice, basis, vcor, int_bath=int_bath, **kwargs)
     with stage("H1", basis.device):
         H1, ovlp_emb = _emb_H1(lattice, basis, vcor, H2, int_bath=int_bath,
                                **kwargs)
@@ -255,20 +292,35 @@ embHam = get_emb_Ham
 
 
 def _emb_H2(lattice, basis, vcor, int_bath=True, **kwargs):
-    if lattice.H2_format != "cholesky" or not int_bath:
-        raise NotImplementedError(
-            "embedding H2: only the interacting-bath 'cholesky' format is "
-            "ported (got %s, int_bath=%s)" % (lattice.H2_format, int_bath))
-    # ab initio path: factorized ERI transform on the factors' device
-    return get_emb_eri_chol(lattice.getH2(), basis)
+    spin = basis.shape[0]
+    neo = basis.shape[-1]
+    npair = spin * (spin + 1) // 2
+    dev = basis.device
+    if lattice.H2_format == "cholesky":
+        if int_bath:
+            # ab initio path: factorized ERI transform on the factors'
+            # device
+            return get_emb_eri_chol(lattice.getH2(), basis)
+        eri_imp = as_f64(lattice.Ham.eri_imp, dev)
+        if eri_imp.ndim == 5:     # spin-blocked (aa, bb, ab) unit-cell ERI
+            return unit2emb(eri_imp, neo)
+        return unit2emb(eri_imp[None].expand((npair,) + eri_imp.shape), neo)
+    if lattice.H2_format == "local":
+        LatH2 = as_f64(lattice.getH2(kspace=False), dev)
+        if int_bath:
+            return transform_eri_local(basis, LatH2)
+        return unit2emb(LatH2[None].expand((npair,) + LatH2.shape), neo)
+    raise NotImplementedError(
+        "embedding H2: the %r format is not ported ('nearest', 'full' and "
+        "'spin local' come with the rest of the model-lattice slice, 'aft' "
+        "with the GDF/AFT slice)" % lattice.H2_format)
 
 
 def _emb_H1(lattice, basis, vcor, H2_emb, int_bath=True, add_vcor=False,
             **kwargs):
-    if not int_bath or getattr(lattice, "xc_dc", None) is not None:
+    if getattr(lattice, "xc_dc", None) is not None:
         raise NotImplementedError(
-            "embedding H1: only the interacting-bath Hartree-Fock double "
-            "counting is ported")
+            "embedding H1: the DFT double counting (xc_dc) is not ported")
     spin = basis.shape[0]
     basis_k = lattice.R2k_basis(basis)
     hcore_emb = transform_h1(lattice.getH1(kspace=True), basis_k)
@@ -276,10 +328,30 @@ def _emb_H1(lattice, basis, vcor, H2_emb, int_bath=True, add_vcor=False,
     if ovlp_emb.shape[0] == 1:
         ovlp_emb = ovlp_emb[0]
 
-    rdm1_emb = foldRho_k(lattice.rdm1_lo_k, basis_k)
-    H1 = transform_h1(lattice.getFock(kspace=True), basis_k)
-    H1 = H1 - get_veff(rdm1_emb, H2_emb)
-    lattice.JK_core = H1 - hcore_emb
+    if int_bath:
+        rdm1_emb = foldRho_k(lattice.rdm1_lo_k, basis_k)
+        H1 = transform_h1(lattice.getFock(kspace=True), basis_k)
+        H1 = H1 - get_veff(rdm1_emb, H2_emb)
+        lattice.JK_core = H1 - hcore_emb
+    else:
+        add_vcor = True
+        if lattice.use_hcore_as_emb_ham:
+            H1 = hcore_emb
+            lattice.JK_core = None
+        else:
+            H1 = transform_h1(lattice.getFock(kspace=True), basis_k)
+            JK_imp = lattice.getImpJK()
+            if JK_imp is not None:
+                JK_imp = as_f64(JK_imp, basis.device)
+                if JK_imp.ndim == 2:
+                    JK_imp = JK_imp[None].expand(spin, -1, -1)
+                JK_emb = torch.stack([transform_imp(basis[s], JK_imp[s])
+                                      for s in range(spin)])
+            else:
+                rdm1_emb = foldRho_k(lattice.rdm1_lo_k, basis_k)
+                JK_emb = get_veff(rdm1_emb, H2_emb)
+            H1 = H1 - JK_emb
+            lattice.JK_core = H1 - hcore_emb
 
     if add_vcor:
         log.eassert(vcor.islocal(), "nonlocal vcor not supported here")

@@ -1,6 +1,15 @@
 """
-Embedding vcor-fit engines (PyTorch port of libdmet_preview_tpu/ops/fit.py:
-_cg_engine, _lm_engine_ft, _lm_loop).
+Correlation-potential fitting (PyTorch port of
+libdmet_preview_tpu/ops/fit.py: the vcor helpers, get_dV_dparam, the
+zero-T objective with its analytic gradient, the CG and LM engines,
+minimize_cg / minimize, FitVcorEmb and FitVcorTwoStep).
+
+FitVcorEmb minimizes || rho_mf(param) - rho_corr ||_F over the embedding
+space.  The objective -- assemble V_emb from the parameter vector,
+generalized eigh, zero-T occupation, density build, residual -- is tensor
+math on the lattice's device, batched over spin; the zero-T gradient is
+the analytic occ-virt first-order perturbation formula, the finite-T one
+comes from autograd through zlinalg.rho_fermi_real.
 
 The JAX package runs each engine as one lax.while_loop program.  PyTorch
 runs eagerly, so here each engine is a Python loop over tensor math on the
@@ -9,16 +18,176 @@ accept/reject or stop decision reads its operands to the host once (one
 host read per decision).  Every constant and every stopping rule of the
 JAX engines is kept, so both packages take the same path and land on the
 same parameters.
+
+The whole-lattice stage (FitVcorFull) needs the backward of the k-space
+Fermi density and is not ported: FitVcorTwoStep raises when MaxIter2 > 0.
 """
 
+import copy
+
+import numpy as np
 import torch
 
+from libdmet_preview_tpu_torch.utils import logger as log
+from libdmet_preview_tpu_torch.utils.misc import Iterable, as_f64
+from libdmet_preview_tpu_torch.ops import embham
 from libdmet_preview_tpu_torch.ops import zlinalg as _zl
 
 
+# ----------------------------------------------------------------------
+# vcor helpers
+# ----------------------------------------------------------------------
+
+def addDiag(v, val, idx_range=None):
+    rep = v.get()
+    spin = rep.shape[0]
+    if not isinstance(val, Iterable):
+        val = [val] * spin
+    if idx_range is None:
+        idx_range = getattr(v, "idx_range", list(range(rep.shape[-1])))
+    rep = np.array(rep, copy=True)
+    for s in range(min(spin, 2)):
+        rep[s, idx_range, idx_range] += val[s]
+    v.assign(rep)
+    return v
+
+
+def vcor_diag_average(v, idx_range=None):
+    rep = v.get()
+    if idx_range is None:
+        idx_range = getattr(v, "idx_range", list(range(rep.shape[-1])))
+    return np.average(rep[:, idx_range, idx_range], axis=1)
+
+
+def keep_vcor_trace_fixed(v_new, v_old):
+    """GSO/Bogoliubov trace fix: remove the mu-absorbable drift -- an EQUAL
+    diagonal shift on va and vb maps to -mu_matrix in the combined GSO
+    frame -- by subtracting 0.5*(avg diag dva - avg diag dvb) from both
+    normal diagonals."""
+    dv = np.asarray(v_new.get()) - np.asarray(v_old.get())
+    d = 0.5 * (np.average(np.diagonal(dv[0]))
+               - np.average(np.diagonal(dv[1])))
+    addDiag(v_new, -d)
+    return v_new
+
+
+def make_vcor_trace_unchanged(v_new, v_old, idx_range=None):
+    v_mat_old = v_old.get()
+    v_mat_new = v_new.get()
+    if idx_range is None:
+        idx_range = getattr(v_new, "idx_range",
+                            list(range(v_mat_new.shape[-1])))
+    dv_ave = np.average((v_mat_new - v_mat_old)[:, idx_range, idx_range],
+                        axis=1)
+    addDiag(v_new, -dv_ave, idx_range=idx_range)
+    return v_new
+
+
+# ----------------------------------------------------------------------
+# dV/dparam in the embedding basis
+# ----------------------------------------------------------------------
+
+def get_dV_dparam(vcor, basis, basis_k=None, kmesh=None):
+    """dV_emb/dparam, dense (nparam, spin, neo, neo) tensor on the basis'
+    device.  basis: (spin, ncells, nlo, neo) R-space tensor."""
+    if not vcor.islocal():
+        raise NotImplementedError(
+            "get_dV_dparam: non-local vcors come with the rest of the "
+            "model-lattice slice")
+    grad = as_f64(vcor.gradient()[:, :basis.shape[0]], basis.device)
+    return torch.einsum("sRpi, Pspq, sRqj -> Psij", basis, grad, basis)
+
+
+# ----------------------------------------------------------------------
+# zero-T objective and gradient
+# ----------------------------------------------------------------------
+
+def _nelec_column(nelec, device):
+    """Per-spin occupation counts as a (spin, 1) long tensor; a tensor is
+    taken as it is, so a caller that evaluates many times converts once."""
+    if isinstance(nelec, torch.Tensor):
+        return nelec
+    return torch.as_tensor(nelec, dtype=torch.long, device=device)[:, None]
+
+
+def _fit_rho(param, embH1, dV, ovlp_chol_inv, fit_mask, nelec, thr_deg=1e-3):
+    """Return (rho1_masked, ew, ev_orth, ewocc) for the current parameters.
+
+    Generalized eigenproblem handled by the Cholesky congruence
+    L^-1 H L^-H; for orthonormal embedding bases L = I.
+    nelec: per-spin occupation tuple (or _nelec_column's tensor)."""
+    Li = ovlp_chol_inv
+    Heff = embH1 + torch.einsum("P, Psij -> sij", param, dV)
+    Horth = Li @ Heff @ Li.transpose(-1, -2)
+    ew, ev = torch.linalg.eigh(Horth)
+
+    ne = _nelec_column(nelec, ew.device)                        # (spin, 1)
+    mu = 0.5 * (torch.gather(ew, 1, ne - 1) + torch.gather(ew, 1, ne))
+    below = (ew < mu - thr_deg).to(ew.dtype)
+    deg = (torch.abs(ew - mu) <= thr_deg).to(ew.dtype)
+    ndeg = torch.sum(deg, dim=1, keepdim=True)
+    nrem = ne - torch.sum(below, dim=1, keepdim=True)
+    frac = torch.where(ndeg > 0, nrem / torch.clamp(ndeg, min=1.0),
+                       torch.zeros_like(ndeg))
+    ewocc = below + frac * deg
+    rho_orth = (ev * ewocc[:, None, :]) @ ev.transpose(-1, -2)
+    # back to the original (non-orthogonal) basis: C = Li^T C'
+    rho1 = Li.transpose(-1, -2) @ rho_orth @ Li
+    return rho1 * fit_mask, ew, ev, ewocc
+
+
+def _fit_err(param, embH1, dV, ovlp_chol_inv, fit_mask, rho_target, nelec,
+             thr_deg=1e-3):
+    spin = embH1.shape[0]
+    rho1, _, _, _ = _fit_rho(param, embH1, dV, ovlp_chol_inv, fit_mask, nelec,
+                             thr_deg)
+    return torch.linalg.norm(rho1 - rho_target) / np.sqrt(1.0 * spin)
+
+
+def _fit_err_grad(param, embH1, dV, ovlp_chol_inv, fit_mask, rho_target,
+                  nelec, thr_deg=1e-3):
+    """Analytic zero-T gradient via occ-virt perturbation theory, batched
+    over spin.  Returns (err, grad) tensors."""
+    spin = embH1.shape[0]
+    neo = embH1.shape[-1]
+    rho1, ew, ev, ewocc = _fit_rho(param, embH1, dV, ovlp_chol_inv, fit_mask,
+                                   nelec, thr_deg)
+    drho = rho1 - rho_target
+    val = torch.linalg.norm(drho)
+    val_safe = torch.clamp(val, min=1e-30)
+
+    Li = ovlp_chol_inv
+    # chain rule through rho_orig = Li^T rho_orth Li:
+    # dw/drho_orth = Li (dw/drho_orig) Li^T
+    D = Li @ drho @ Li.transpose(-1, -2)
+    # 1 / (e_occ[n] - e_virt[m]) on the (virt m, occ n) pairs, 0 elsewhere
+    ne = _nelec_column(nelec, ew.device)
+    is_occ = torch.arange(neo, device=ew.device)[None, :] < ne   # (spin, n)
+    pair = (~is_occ)[:, :, None] & is_occ[:, None, :]
+    diff = ew[:, None, :] - ew[:, :, None]
+    e_mn = torch.where(pair, 1.0 / torch.where(pair, diff,
+                                               torch.ones_like(diff)),
+                       torch.zeros_like(diff))
+    temp = (ev.transpose(-1, -2) @ D @ ev) * e_mn \
+        / (val_safe * np.sqrt(1.0 * spin))
+    A = ev @ temp @ ev.transpose(-1, -2)
+    G = A + A.transpose(-1, -2)
+    # transform back through the congruence: dH_orth = Li dH Li^T
+    # => dw/dH = Li^T G_orth Li
+    G = Li.transpose(-1, -2) @ G @ Li
+    grad = torch.einsum("Psij, sij -> P", dV, G)
+    return val / np.sqrt(1.0 * spin), grad
+
+
+# ----------------------------------------------------------------------
+# device optimizers
+# ----------------------------------------------------------------------
+
 def _cg_engine(fg, x0, max_iter, ytol, gtol, dx_tol=1e-7):
     """Polak-Ribiere CG with backtracking-Armijo search.
-    fg: x -> (f, grad) tensors.  Returns (x, f, max|g|) tensors."""
+    fg: x -> (f, grad) tensors.  Returns (x, f, max|g|) tensors.
+    _cg_engine.steps counts the CG steps taken since the caller last set
+    it to 0."""
     f, g = fg(x0)
     x = x0
     d = -g
@@ -59,7 +228,11 @@ def _cg_engine(fg, x0, max_iter, ytol, gtol, dx_tol=1e-7):
             x = x + alpha * d
             f, g, d = f_new, g_new, d_new
         it += 1
+    _cg_engine.steps += it
     return x, f, torch.max(torch.abs(g))
+
+
+_cg_engine.steps = 0
 
 
 def _lm_engine_ft(p0, embH1, dV_emb, target, nelec2, beta, max_iter,
@@ -151,3 +324,366 @@ def _lm_loop(state, p0, spin, max_iter, ytol, gtol, lam0=1e-3):
         done = n_small >= 2 or gmax_h < gtol * 0.1 or lam > 1e8
         it += 1
     return p, err, torch.max(torch.abs(grad(err, J, r)))
+
+
+def _fit_lm_finite_t(p0, embH1, dV, Li, mask, target, ytol, gtol, nelec2,
+                     beta, max_iter, spin):
+    """Finite-T FitVcorEmb objective (overlap-Cholesky rotation Li +
+    residual mask, identical to _fit_cg_finite_t) minimized by LM with
+    the exact Daleckii-Krein Jacobian.  With W = Li[s]^T V the chain
+    rule collapses to batched matmuls shared across all P directions:
+
+      M_P = W^T dV_P W,
+      dRho1_P = mask o (W (K o M_P - dmu_P diag f') W^T).
+    """
+    n = embH1.shape[-1]
+    P = p0.shape[0]
+
+    def state(p):
+        Heff = embH1 + torch.einsum("P, Psij -> sij", p, dV)
+        Horth = Li @ Heff @ Li.transpose(-1, -2)
+        errs = 0.0
+        Js, rs = [], []
+        for s in range(spin):
+            ew, V = torch.linalg.eigh(Horth[s])
+            mu = _zl._bisect_mu(ew, 0.5 * nelec2[s], beta)
+            occ = _zl._fermi(ew, mu, beta)
+            W = Li[s].T @ V
+            rho1 = (W * occ[None, :]) @ W.T
+            d = rho1 * mask[s] - target[s]
+            f, K = _zl._fermi_K(ew, mu, beta)
+            fp = -beta * f * (1.0 - f)
+            denom = torch.sum(fp)
+            safe = torch.abs(denom) > 1e-300
+            inv_den = torch.where(
+                safe, 1.0 / torch.where(safe, denom, torch.ones_like(denom)),
+                torch.zeros_like(denom))
+            M = W.T @ dV[:, s] @ W                            # (P, n, n)
+            dmu = torch.einsum("Pii, i -> P", M, fp) * inv_den
+            core = K[None] * M - dmu[:, None, None] * torch.diag(fp)[None]
+            J = (W @ core @ W.T) * mask[s][None]
+            Js.append(J.reshape(P, n * n))
+            rs.append(d.reshape(n * n))
+            errs = errs + torch.sum(d * d)
+        err = torch.sqrt(errs / spin)
+        return err, torch.cat(Js, dim=1), torch.cat(rs)
+
+    return _lm_loop(state, p0, spin, max_iter, ytol, gtol)
+
+
+def _fit_cg_zero_t(p0, embH1, dV, Li, mask, target, ytol, gtol, nelec,
+                   thr_deg, max_iter):
+    def fg(p):
+        return _fit_err_grad(p, embH1, dV, Li, mask, target, nelec=nelec,
+                             thr_deg=thr_deg)
+    return _cg_engine(fg, p0, max_iter, ytol, gtol)
+
+
+def _err_finite_t(p, embH1, dV, Li, mask, target, nelec2, beta, spin):
+    """The finite-T FitVcorEmb objective, differentiable in p through
+    zlinalg.rho_fermi_real."""
+    Heff = embH1 + torch.einsum("P, Psij -> sij", p, dV)
+    Horth = Li @ Heff @ Li.transpose(-1, -2)
+    errs = 0.0
+    for s in range(spin):
+        r_re, _ = _zl.rho_fermi_real(Horth[s], nelec2[s], beta)
+        rho1 = (Li[s].T @ r_re @ Li[s]) * mask[s]
+        errs = errs + torch.sum((rho1 - target[s]) ** 2)
+    return torch.sqrt(errs / spin)
+
+
+def _value_and_grad(err):
+    """x -> (err(x), d err / dx), detached tensors."""
+    def fg(x):
+        x = x.detach().requires_grad_(True)
+        e = err(x)
+        (g,) = torch.autograd.grad(e, x)
+        return e.detach(), g
+    return fg
+
+
+def _fit_cg_finite_t(p0, embH1, dV, Li, mask, target, ytol, gtol, nelec2,
+                     beta, max_iter, spin):
+    fg = _value_and_grad(lambda p: _err_finite_t(
+        p, embH1, dV, Li, mask, target, nelec2, beta, spin))
+    return _cg_engine(fg, p0, max_iter, ytol, gtol)
+
+
+# ----------------------------------------------------------------------
+# host optimizers: CG with ytol/gtol stopping, and the dispatcher
+# ----------------------------------------------------------------------
+
+def minimize_cg(fun_grad, x0, max_iter=300, ytol=1e-7, gtol=1e-3,
+                dx_tol=1e-7):
+    """Polak-Ribiere CG with backtracking-Armijo line search over a host
+    objective fun_grad(x) -> (f, grad)."""
+    x = np.asarray(x0, dtype=float).copy()
+    f, g = fun_grad(x)
+    d = -g
+    n_small = 0
+    step0 = 1.0
+    for it in range(max_iter):
+        gnorm = np.max(np.abs(g))
+        if gnorm < gtol * 0.1:
+            break
+        # line search
+        dg = np.dot(g, d)
+        if dg >= 0:
+            d = -g
+            dg = -np.dot(g, g)
+        alpha = step0
+        f_new, g_new = None, None
+        for _ in range(30):
+            x_new = x + alpha * d
+            f_try, g_try = fun_grad(x_new)
+            if f_try <= f + 1e-4 * alpha * dg:
+                f_new, g_new = f_try, g_try
+                break
+            alpha *= 0.4
+        if f_new is None:
+            break
+        step0 = min(max(alpha * 2.5, 1e-4), 1.0)
+        dx = np.max(np.abs(alpha * d)) if d.size else 0.0
+        beta = max(0.0, np.dot(g_new, g_new - g) / max(np.dot(g, g), 1e-30))
+        d = -g_new + beta * d
+        df = f - f_new
+        x, f, g = x_new, f_new, g_new
+        if df < ytol:
+            n_small += 1
+            if n_small >= 2:
+                break
+        else:
+            n_small = 0
+        if dx < dx_tol:
+            break
+    return x, f, np.max(np.abs(g))
+
+
+def minimize(fun_grad, x0, method="CG", max_iter=300, **kwargs):
+    """Optimizer dispatcher over a host objective fun_grad(x) -> (f, grad):
+    'CG' is minimize_cg; 'BFGS' / 'trust-ncg' map to scipy; 'SD' is plain
+    steepest descent.  The JAX package's 'AH' (Newton-CG with
+    Hessian-vector products) is still to port."""
+    method = method.upper()
+    if method == "CG":
+        x, f, _ = minimize_cg(fun_grad, x0, max_iter=max_iter, **kwargs)
+        return x, f
+    if method in ("BFGS", "TRUST-NCG", "TRUSTNCG"):
+        from scipy import optimize as opt
+        name = "BFGS" if method == "BFGS" else "trust-ncg"
+        extra = {}
+        if name == "trust-ncg":
+            # scipy requires a hessp for trust-ncg: finite-difference on
+            # the gradient
+            def hessp(x, p):
+                eps = 1e-6
+                g1 = fun_grad(np.asarray(x) + eps * np.asarray(p))[1]
+                g0 = fun_grad(np.asarray(x))[1]
+                return (np.asarray(g1) - np.asarray(g0)) / eps
+            extra["hessp"] = hessp
+        options = {"maxiter": max_iter}
+        if "gtol" in kwargs:
+            options["gtol"] = kwargs["gtol"]
+        res = opt.minimize(lambda x: fun_grad(x)[0], np.asarray(x0),
+                           jac=lambda x: np.asarray(fun_grad(x)[1]),
+                           method=name, options=options, **extra)
+        return np.asarray(res.x), float(res.fun)
+    if method in ("AH", "NEWTON", "NEWTON-CG"):
+        raise NotImplementedError(
+            "minimize: the 'AH' Newton-CG minimizer comes with the rest of "
+            "the model-lattice slice")
+    if method == "SD":
+        x = np.array(x0, dtype=float)
+        step = kwargs.get("step", 0.1)
+        f_old = None
+        for _ in range(max_iter):
+            f, g = fun_grad(x)
+            f = float(f)
+            if f_old is not None and abs(f - f_old) < kwargs.get(
+                    "ytol", 1e-9):
+                break
+            x = x - step * np.asarray(g)
+            f_old = f
+        f, _ = fun_grad(x)
+        return x, float(f)
+    raise ValueError("unknown method %s" % method)
+
+
+# ----------------------------------------------------------------------
+# the fit in the fixed embedding basis
+# ----------------------------------------------------------------------
+
+def FitVcorEmb(rho, lattice, basis, vcor, beta, MaxIter=300, imp_fit=False,
+               imp_idx=None, det=False, det_idx=None, CG_check=False,
+               BFGS=False, **kwargs):
+    """Fit vcor in the fixed embedding basis, on the basis' device.
+
+    rho: (spin, neo, neo) correlated embedding rdm1 (tensor or array);
+    basis: (spin, ncells, nlo, neo) tensor.  method="CG" (default) runs
+    the CG engine, method="LM" the Levenberg-Marquardt engine at finite
+    beta (CG at beta = inf, as in the JAX package); any other method goes
+    through minimize.  Returns (vcor, err_begin, err_end)."""
+    if kwargs.get("P_act", None) is not None \
+            or kwargs.get("C_act", None) is not None:
+        raise NotImplementedError(
+            "FitVcorEmb: the active-space fit (P_act / C_act) comes with "
+            "the rest of the model-lattice slice")
+    dev = basis.device
+    spin = basis.shape[0]
+    neo = basis.shape[-1]
+    basis_k = lattice.R2k_basis(basis)
+
+    nelec = kwargs.get("nelec", None)
+    if nelec is None:
+        ne = lattice.ncore + lattice.nval
+        nelec = (ne,) * spin
+    elif not isinstance(nelec, Iterable):
+        nelec = (int(nelec),) * spin
+    else:
+        nelec = tuple(int(x) for x in nelec)
+    thr_deg = float(kwargs.get("tol_deg", 1e-3))
+
+    if lattice.use_hcore_as_emb_ham:
+        fock_k = lattice.getH1(kspace=True)
+    else:
+        fock_k = lattice.getFock(kspace=True)
+    ovlp_k = lattice.get_ovlp(kspace=True)
+
+    embH1 = embham.transform_h1(fock_k, basis_k)
+    vcor_mat = kwargs.get("vcor_mat", None)
+    if vcor_mat is not None:
+        embH1 = embH1 + as_f64(vcor_mat, dev)
+    ovlp_emb = embham.transform_h1(ovlp_k, basis_k)
+
+    # inverse Cholesky factor of the embedding overlap (identity for
+    # orthonormal LOs)
+    Li = torch.linalg.inv(torch.linalg.cholesky(ovlp_emb))
+
+    dV = get_dV_dparam(vcor, basis, basis_k=basis_k, kmesh=lattice.kmesh)
+
+    # fit index mask (imp_fit / det options)
+    if imp_fit:
+        imp_idx, det_idx = list(range(lattice.nimp)), []
+    elif det:
+        imp_idx, det_idx = [], list(range(lattice.nimp))
+    elif imp_idx is None:
+        if det_idx is None:
+            imp_idx, det_idx = list(range(neo)), []
+        else:
+            imp_idx = []
+    elif det_idx is None:
+        det_idx = []
+    mask = np.zeros((spin, neo, neo))
+    ii = np.asarray(imp_idx, dtype=int)
+    if ii.size:
+        mask[np.ix_(range(spin), ii, ii)] = 1.0
+    dd = np.asarray(det_idx, dtype=int)
+    if dd.size:
+        mask[:, dd, dd] = 1.0
+    mask = as_f64(mask, dev)
+
+    rho = as_f64(rho, dev)
+    if kwargs.get("idem_fit", False):
+        # fit against the idempotent part of the correlated rdm1: occupy
+        # its natural orbitals with assignocc (host, tiny)
+        from libdmet_preview_tpu_torch.ops import mfd
+        rho_h = rho.cpu().numpy()
+        rho_idem = np.empty_like(rho_h)
+        for s in range(spin):
+            ew, ev = np.linalg.eigh(rho_h[s])
+            ew, ev = -ew[::-1], ev[:, ::-1]
+            ewocc, _, _ = mfd.assignocc(ew, int(nelec[s]), beta, mu0=-0.5)
+            rho_idem[s] = (ev * ewocc) @ ev.T
+        rho = as_f64(rho_idem, dev)
+    rho_target = rho * mask
+
+    args = (embH1, dV, Li, mask, rho_target)
+    nelec_t = _nelec_column(nelec, dev)
+    nelec2 = tuple(2 * int(x) for x in nelec)  # doubled spectrum
+
+    if beta < np.inf:
+        # finite temperature: differentiate straight through the
+        # degenerate-safe Fermi-density op
+        fg_dev = _value_and_grad(lambda p: _err_finite_t(
+            p, *args, nelec2, float(beta), spin))
+    else:
+        def fg_dev(p):
+            return _fit_err_grad(p, *args, nelec=nelec_t, thr_deg=thr_deg)
+
+    def fun_grad(p):
+        e, g = fg_dev(as_f64(p, dev))
+        return float(e), g.cpu().numpy()
+
+    err_begin = fun_grad(vcor.param)[0]
+    if kwargs.get("test_grad", False):
+        _test_grad(vcor.param, fun_grad)
+
+    method = kwargs.get("method", "CG").upper()
+    ytol = kwargs.get("ytol", 1e-7)
+    gtol = kwargs.get("gtol", 1e-3)
+    if method in ("CG", "LM"):
+        p0 = as_f64(vcor.param, dev)
+        if beta < np.inf and method == "LM":
+            x, err_end, gnorm = _fit_lm_finite_t(
+                p0, *args, ytol, gtol, nelec2, float(beta), int(MaxIter),
+                spin)
+        elif beta < np.inf:
+            x, err_end, gnorm = _fit_cg_finite_t(
+                p0, *args, ytol, gtol, nelec2, float(beta), int(MaxIter),
+                spin)
+        else:
+            x, err_end, gnorm = _fit_cg_zero_t(
+                p0, *args, ytol, gtol, nelec_t, thr_deg, int(MaxIter))
+        x, err_end, gnorm = x.cpu().numpy(), float(err_end), float(gnorm)
+    else:
+        x, err_end = minimize(fun_grad, vcor.param, method=method,
+                              max_iter=MaxIter)
+        gnorm = float(np.max(np.abs(fun_grad(x)[1])))
+
+    if CG_check or BFGS or gnorm > 1e-3:
+        from scipy import optimize as opt
+        res = opt.minimize(lambda p: fun_grad(p)[0], x,
+                           jac=lambda p: fun_grad(p)[1],
+                           method="BFGS" if BFGS else "CG",
+                           options={"maxiter": min(len(x) * 10, MaxIter),
+                                    "gtol": max(gnorm * 0.1, 5e-5)})
+        if res.fun < err_end:
+            x, err_end = res.x, float(res.fun)
+
+    vcor.update(x)
+    log.info("FitVcorEmb: err %20.12f -> %20.12f (|g|=%.2e)",
+             err_begin, err_end, gnorm)
+    return vcor, err_begin, err_end
+
+
+def _test_grad(param0, fun_grad, dx=1e-5):
+    f0, g_ana = fun_grad(param0)
+    g_num = np.zeros_like(g_ana)
+    for i in range(len(param0)):
+        p1 = param0.copy()
+        p1[i] += dx
+        p2 = param0.copy()
+        p2[i] -= dx
+        g_num[i] = (fun_grad(p1)[0] - fun_grad(p2)[0]) / (2 * dx)
+    log.info("grad check: max |ana - num| = %.3e",
+             np.abs(g_ana - g_num).max())
+    return g_ana, g_num
+
+
+def FitVcorTwoStep(rho, lattice, basis, vcor, beta, filling, MaxIter1=300,
+                   MaxIter2=0, **kwargs):
+    """Two-step fit wrapper; only the embedding-space stage is ported."""
+    if MaxIter2 > 0:
+        raise NotImplementedError(
+            "FitVcorTwoStep: the whole-lattice stage (FitVcorFull, "
+            "MaxIter2 > 0) needs the backward of the k-space Fermi density "
+            "and comes with the rest of the model-lattice slice")
+    vcor_new = copy.deepcopy(vcor)
+    err_begin = err_end = None
+    if MaxIter1 > 0:
+        vcor_new, err_begin, err_end = FitVcorEmb(rho, lattice, basis,
+                                                  vcor_new, beta,
+                                                  MaxIter=MaxIter1, **kwargs)
+    log.result("residue (begin) = %s", err_begin)
+    log.result("residue (end)   = %s", err_end)
+    return vcor_new, err_end

@@ -92,8 +92,8 @@ def HF(lattice, vcor, filling, restricted, mu0=None, beta=np.inf, ires=False,
     log.eassert(beta >= 0, "beta cannot be negative")
     device = lattice.device
     if device is None:
-        raise ValueError("HF: the lattice has no device (build it with "
-                         "set_Ham_abinitio(..., device=...))")
+        raise ValueError("HF: the lattice has no device (attach its "
+                         "Hamiltonian with set_Ham(..., device=...))")
     if use_hcore is None:
         use_hcore = lattice.use_hcore_as_emb_ham
     if use_hcore:
