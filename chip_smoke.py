@@ -23,7 +23,7 @@ Phases, in order; any failure raises and the process exits non-zero:
      and (1024, 96) each kernel is checked the same way and timed against
      its plain version, which is one cuBLAS call (torch.mm), beside its
      bound; at the timing shapes whose 64 x 64 grid ends in a short wave,
-     each kernel is checked and timed with that wave split into 1 .. 12
+     each kernel is checked and timed with that wave split into 1 .. 8
      pieces, in rising then falling order, against the schedule's choice;
   4. the main path at the bench workload (Nk=27, nlo=16, neo=32,
      naux=512, beta=1000, 20 LM fit steps; inputs made with NumPy from the
@@ -69,6 +69,51 @@ Phases, in order; any failure raises and the process exits non-zero:
          4e-4); the kernel at that shape against its plain version, timed
          beside its bound.
 
+  8. the rest of the model-lattice DMET on the card, through dmet.hubbard,
+     ops.mfd, ops.embham and ops.fit (hand-written loops, as a user of
+     these entry points writes them):
+     8a. pDMET (global-density-matrix self-consistency, no vcor fit):
+         SquareLattice(40, 40, 2, 2), U=4, half filling, beta=1000, HF_scf
+         from the AFInitGuess seed, UHF + FCI, interacting bath,
+         update_Ham(rho_glob) each iteration, DIIS on the global density,
+         to convergence with the Fock update (E/site -0.876942444093 at
+         1e-6) and with the idempotent projection (-0.86455325 at 2e-4);
+         two iterations of the first case on the card against the CPU (E,
+         nelec, accumulated dmu, rho_glob: 1e-8);
+     8b. the finite-temperature Fock-embedding loop with the whole-lattice
+         vcor fit: 6 x 6, U=8, 2 x 2 impurity, beta=1000,
+         use_hcore_as_emb_ham=False, HF_scf, FitVcor(MaxIter1=0,
+         MaxIter2=300, imp_fit=True, BFGS=True) to convergence (E/site
+         -0.51685 at 1e-4), with the fit's evaluations and seconds per
+         iteration; then the same FitVcorFull once on the 40 x 40 lattice
+         of 8a (800 Hermitian 4 x 4 blocks per evaluation): seconds per
+         evaluation, and the gradient against central differences in
+         three random directions (1e-6 relative);
+     8c. the three-band cuprate model at full width: Square3BandAFM(20,
+         20, 1, 1) (400 k-points of 6 x 6 blocks, two CuO2 units per
+         cell), Hubbard3band_ref("Hanke") in the electron representation,
+         filling 5/6, UHF, non-interacting bath, FCI on 12 embedding
+         orbitals with 12 electrons (924^2 = 853,776 determinants), the
+         dmu loop (MuSolver, step=0.3) followed by FitVcor and a vcor
+         update, four DMET iterations; nelec per site, the cluster's
+         mirror-related occupations and the hole count are held, and the
+         first iteration's impurity problem is checked against the CPU
+         (one sigma application at 1e-10; the whole solve, E 1e-8 and
+         rdm1 1e-7, when the CPU can do it in about 90 s); stage seconds,
+         sigma builds, peak device memory and the idle share of one
+         iteration;
+     8d. (i) the 'nearest' H2 format: Square3Band(20, 20, 1, 1),
+         Hubbard3band_ref("Hybertsen", ignore_intercell=False),
+         restricted, update_Ham(rho * 2) -> ConstructImpHam(int_bath=True)
+         -> FCI -> transformResults on the card against the CPU (1e-8),
+         the batched transform_eri_nearest against its loop over all
+         cells (1e-11); (ii) charge self-consistency on phase 6's
+         workload: update_lattice_csc -> a second ConstructImpHam(
+         int_bath=True) -> get_E_dmet(veff=), with 2 symmetric and 1 cross
+         syrk launches at (2400, 60) counted in that ConstructImpHam and
+         no call of a plain version on the card; the card against the CPU
+         (1e-8).
+
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}.
 """
@@ -98,7 +143,7 @@ CROSS_SHAPES = [(96, 18), (300, 45), (7, 2), (2400, 60)]
 # (naux, neo): the bench path's tri shape, the ab initio path's, a large one
 TIMING_SHAPES = [(512, 32), (2400, 60), (1024, 96)]
 PATH_SHAPE = (2400, 60)     # shape of the kernels on the phase-6 path
-MAX_SCAN_SPLIT = 12         # pieces per last-wave tile in the split scan
+MAX_SCAN_SPLIT = 8          # pieces per last-wave tile in the split scan
 DESIGN = ("DMMA mma.sync m16n8k4 f64; 64x64 tiles, 4 warps of 32x32, 3 "
           "blocks/SM (32x32 tiles where 64x64 fill under one wave); 4-stage "
           "cp.async ring of 16 aux rows; last wave split along aux, pieces "
@@ -642,6 +687,7 @@ def run_abinitio_uhf(hcore, fock, L, eri_imp, device, ncells=AI_NCELLS):
                 rdm1, E_scf, basis, ImpHam, H1e, lattice=Lat, last_dmu=0.0,
                 int_bath=True, solver=hf, solver_args={"nelec": nel})
     return {"Lat": Lat, "rho": rho, "E_hf": res["E"], "gap": res["gap"],
+            "vcor": vcor, "solver": hf,
             "basis": basis, "ImpHam": ImpHam, "nel": nel, "rdm1": rdm1,
             "E_scf": E_scf, "E_cell": E_cell, "n_cell": n_cell,
             "bfgs": list(hf.scf.oo_iterations),
@@ -753,7 +799,7 @@ def phase_abinitio_uhf(device):
         bad.append("launch counts %s" % launches)
     if bad:
         raise AssertionError("abinitio phase failed: %s" % bad)
-    return launches
+    return launches, d, c
 
 
 # ----------------------------------------------------------------------
@@ -815,26 +861,51 @@ def run_hub2d(U, int_bath, device, max_iter=HUB2D["max_iter"],
     return res, sec, counts, idle
 
 
-def _idle_share(fn):
-    """Share of fn's wall time in which the card runs no kernel, from
-    torch.profiler's device times; None when the profiler reports no
-    device time."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()                                    # warm: tables, cuSOLVER handles
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
+class _Profiled(object):
+    """Context manager: torch.profiler over the block, the card
+    synchronised at its end.  Afterwards .idle is the share of the block's
+    wall time (taken before the profiler processes its trace) in which the
+    card ran no kernel: one minus the length of the union of the device
+    events' time ranges over the wall time; None when the profiler
+    reports no device event."""
+
+    def __enter__(self):
+        from torch.profiler import ProfilerActivity, profile
         torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    busy_us = 0.0
-    for ev in prof.key_averages():
-        busy_us += getattr(ev, "self_device_time_total",
-                           getattr(ev, "self_cuda_time_total", 0.0))
-    if busy_us <= 0.0:
-        return None
-    return max(0.0, 1.0 - busy_us * 1e-6 / wall)
+        self._prof = profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA])
+        self._prof.__enter__()
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        from torch.autograd import DeviceType
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - self._t0
+        self._prof.__exit__(*exc)
+        spans = sorted((ev.time_range.start, ev.time_range.end)
+                       for ev in self._prof.events()
+                       if ev.device_type == DeviceType.CUDA)
+        busy_us, end = 0.0, None
+        for t0, t1 in spans:
+            if end is None or t0 >= end:
+                busy_us += t1 - t0
+                end = t1
+            elif t1 > end:
+                busy_us += t1 - end
+                end = t1
+        self.idle = (max(0.0, 1.0 - busy_us * 1e-6 / wall)
+                     if spans else None)
+        return False
+
+
+def _idle_share(fn):
+    """Idle share of the card over fn(), after one unprofiled call that
+    warms the tables and the cuSOLVER handles."""
+    fn()
+    with _Profiled() as prof:
+        fn()
+    return prof.idle
 
 
 def _print_loop_stages(label, res, sec, counts, card):
@@ -1109,6 +1180,606 @@ def phase_dmet_loop_cholesky(device, card):
     return launches, err, (ms, plain_ms)
 
 
+# ----------------------------------------------------------------------
+# phase 8: the rest of the model-lattice DMET
+# ----------------------------------------------------------------------
+
+PDMET = {"size": (40, 40), "imp": (2, 2), "U": 4.0, "beta": 1000.0,
+         "max_iter": 25,
+         "cases": [("Fock update", False, -0.876942444093, 1e-6),
+                   ("idempotent projection", True, -0.86455325, 2e-4)]}
+IB_FOCK = {"size": (6, 6), "imp": (2, 2), "U": 8.0, "beta": 1000.0,
+           "max_iter": 50, "anchor": -0.51685, "tol": 1e-4}
+THREE_BAND = {"factory": "Square3BandAFM", "size": (20, 20), "name": "Hanke",
+              "filling": 5.0 / 6.0, "iters": 4, "cu": [0, 1],
+              # oxygen pairs that the impurity cluster's mirror x -> 4 - x
+              # maps onto each other (sites (1, 1) and (3, 1))
+              "mirror_pairs": [(4, 5)], "cpu_solve_seconds": 90.0,
+              # the iteration run under torch.profiler for the idle share
+              "profiled": 1}
+NEAREST = {"size": (20, 20), "name": "Hybertsen", "filling": 5.0 / 6.0}
+
+
+def run_pdmet(idem, device, size=PDMET["size"], max_iter=PDMET["max_iter"],
+              n_fixed=None):
+    """The pDMET loop on `device`: bath from the global density (idem: its
+    idempotent projection, else the mean field of the Fock it gives),
+    UHF + FCI with the interacting bath, DIIS on the global density from
+    the third iteration.  Runs to convergence, or n_fixed iterations.
+    Returns (records, converged, stage seconds)."""
+    import libdmet_preview_tpu_torch.dmet.hubbard as dmet
+    from libdmet_preview_tpu_torch.ops import embham, mfd
+    from libdmet_preview_tpu_torch.ops.diis import DIIS
+    from libdmet_preview_tpu_torch.solvers import FCI
+    from libdmet_preview_tpu_torch.utils import timer
+    U, beta, filling = PDMET["U"], PDMET["beta"], 0.5
+    Lat = dmet.SquareLattice(*size, *PDMET["imp"])
+    Lat.set_Ham(dmet.Ham(Lat, U), use_hcore_as_emb_ham=False, device=device)
+    nsc = Lat.nscsites
+    rec, conv = [], False
+    with timer.recording() as sec:
+        with timer.stage("HF_scf", device):
+            seed = dmet.AFInitGuess(PDMET["imp"], U, filling)
+            rho, Mu, _, _ = mfd.HF_scf(Lat, seed, filling, False,
+                                       mu0=U * filling, beta=beta, ires=True)
+        vcor = dmet.VcorLocal(False, False, nsc)
+        vcor.update(np.zeros(vcor.length()))
+        solver = FCI(restricted=False, tol=1e-12, device=device)
+        mu_solver = dmet.MuSolver(adaptive=True)
+        adiis = DIIS(space=6)
+        rho_glob = np.asarray(rho)
+        rho_old = rho_glob.copy()
+        last_dmu, E_old = 0.0, 0.0
+        for it in range(n_fixed or max_iter):
+            with timer.stage("mean field", device):
+                Lat.update_Ham(rho_glob)
+                if idem:
+                    rho_bath = rho_glob
+                else:
+                    rho_bath, Mu = dmet.HartreeFock(Lat, vcor, filling, Mu,
+                                                    beta=beta)
+            ImpHam, H1e, basis = dmet.ConstructImpHam(
+                Lat, rho_bath, vcor, matching=False, int_bath=True)
+            ImpHam = dmet.apply_dmu(Lat, ImpHam, basis, last_dmu)
+            solver_args = {"nelec": (Lat.ncore + Lat.nval) * 2}
+            with timer.stage("impurity solves", device):
+                rhoEmb, EnergyEmb, ImpHam, dmu = mu_solver(
+                    Lat, filling, ImpHam, basis, solver, solver_args,
+                    thrnelec=1e-5, delta=0.01, step=0.1)
+            last_dmu += dmu
+            with timer.stage("energy", device):
+                _, E, nelec = dmet.transformResults(
+                    rhoEmb, EnergyEmb, basis, ImpHam, H1e, lattice=Lat,
+                    last_dmu=last_dmu, int_bath=True, solver=solver,
+                    solver_args=solver_args)
+            with timer.stage("global density", device):
+                rho_glob = embham.get_rho_glob_R(basis, Lat, rhoEmb)
+                if idem:
+                    nel = Lat.ncells * nsc * filling
+                    rho_glob = embham.get_rdm1_idem(
+                        rho_glob, [nel, nel],
+                        tuple(int(x) for x in Lat.kmesh), device=device)
+                if it >= 2:
+                    rho_glob = adiis.update(rho_glob.ravel()).reshape(
+                        rho_glob.shape)
+            drho = float(np.max(np.abs(rho_glob - rho_old)))
+            rho_old = rho_glob.copy()
+            dE, E_old = E - E_old, E
+            rec.append({"iter": it, "E": float(E), "nelec": float(nelec),
+                        "last_dmu": float(last_dmu), "rho_glob": rho_old})
+            if n_fixed is None and drho < 1e-5 and abs(dE) < 1e-6 and it > 3:
+                conv = True
+                break
+    return rec, conv, sec
+
+
+def _print_stages(label, card, sec, n_it, skip=()):
+    for k, v in sec.items():
+        if k not in skip:
+            print("%s [%s]: stage %-18s %.6f s in all, %.6f s per iteration "
+                  "(%d calls)" % (label, card, k, sum(v), sum(v) / n_it,
+                                  len(v)))
+
+
+def phase_pdmet(device, card):
+    for label, idem, anchor, tol in PDMET["cases"]:
+        t0 = time.perf_counter()
+        rec, conv, sec = run_pdmet(idem, device)
+        E = rec[-1]["E"]
+        name = "pDMET 40x40 U=4 (%s)" % label
+        print("%s [%s]: %d iterations, converged %s, E/site %.12f (anchor "
+              "%.12f, diff %.3e, tol %.0e), nelec/site %.10f, %.2f s in all"
+              % (name, card, len(rec), conv, E, anchor, E - anchor, tol,
+                 rec[-1]["nelec"], time.perf_counter() - t0))
+        _print_stages(name, card, sec, len(rec))
+        if not (conv and abs(E - anchor) < tol
+                and abs(rec[-1]["nelec"] - 1.0) < 1e-4):
+            raise AssertionError("%s missed its anchor" % name)
+    rec_d = run_pdmet(False, device, n_fixed=2)[0]
+    rec_c = run_pdmet(False, torch.device("cpu"), n_fixed=2)[0]
+    _compare_histories("pDMET 40x40 U=4 (Fock update)", rec_d, rec_c,
+                       dict.fromkeys(["E", "nelec", "last_dmu", "rho_glob"],
+                                     LOOP_TOL), 2)
+
+
+def run_ib_fock(device, size=IB_FOCK["size"], max_iter=IB_FOCK["max_iter"]):
+    """The finite-temperature Fock-embedding loop with the whole-lattice
+    vcor fit (FitVcorFull through FitVcor(MaxIter1=0)) on `device`.
+    Returns (records, converged, stage seconds, fit evaluations)."""
+    import libdmet_preview_tpu_torch.dmet.hubbard as dmet
+    from libdmet_preview_tpu_torch.ops import fit, mfd
+    from libdmet_preview_tpu_torch.ops.diis import DIIS
+    from libdmet_preview_tpu_torch.solvers import FCI
+    from libdmet_preview_tpu_torch.utils import timer
+    U, beta, filling = IB_FOCK["U"], IB_FOCK["beta"], 0.5
+    Mu, last_dmu = U * filling, 0.0
+    Lat = dmet.SquareLattice(*size, *IB_FOCK["imp"])
+    Lat.set_Ham(dmet.Ham(Lat, U), use_hcore_as_emb_ham=False, device=device)
+    nsc = Lat.nscsites
+    vcor = dmet.VcorLocal(False, False, nsc)
+    vcor.update(np.zeros(vcor.length()))
+    # AFM-seeded self-consistent UHF, then lock the Fock
+    rho_seed = np.zeros((2, Lat.ncells, nsc, nsc))
+    rho_seed[0, 0] = np.diag([1.0, 0.0, 0.0, 1.0])
+    rho_seed[1, 0] = np.diag([0.0, 1.0, 1.0, 0.0])
+    Lat.update_Ham(rho_seed)
+    rho, Mu, _, _ = mfd.HF_scf(Lat, vcor, filling, False, beta=beta,
+                               ires=True)
+    Lat.update_Ham(rho)
+    solver = FCI(restricted=False, tol=1e-10, device=device)
+    mu_solver = dmet.MuSolver(adaptive=True)
+    adiis = DIIS(space=4)
+    E_old, conv, rec = 0.0, False, []
+    fit.FitVcorFull.n_eval = 0
+    with timer.recording() as sec:
+        for it in range(max_iter):
+            with timer.stage("mean field", device):
+                rho, Mu, _ = dmet.HartreeFock(Lat, vcor, filling, Mu,
+                                              beta=beta, ires=True)
+                Lat.update_Ham(rho)
+            ImpHam, H1e, basis = dmet.ConstructImpHam(
+                Lat, rho, vcor, matching=False, int_bath=True)
+            ImpHam = dmet.apply_dmu(Lat, ImpHam, basis, last_dmu)
+            solver_args = {"nelec": (Lat.ncore + Lat.nval) * 2}
+            with timer.stage("impurity solves", device):
+                rhoEmb, EnergyEmb, ImpHam, dmu = mu_solver(
+                    Lat, filling, ImpHam, basis, solver, solver_args)
+            last_dmu += dmu
+            with timer.stage("energy", device):
+                _, E, nelec = dmet.transformResults(
+                    rhoEmb, EnergyEmb, basis, ImpHam, H1e, lattice=Lat,
+                    last_dmu=last_dmu, int_bath=True, solver=solver,
+                    solver_args=solver_args)
+            with timer.stage("whole-lattice fit", device):
+                vcor_new, err = dmet.FitVcor(
+                    rhoEmb, Lat, basis, vcor, beta, filling, MaxIter1=0,
+                    MaxIter2=300, imp_fit=True, BFGS=True)
+            pvcor = np.hstack(vcor_new.param)
+            if it >= 4:
+                pvcor = adiis.update(pvcor)
+            dVcor = np.linalg.norm(pvcor - vcor.param) / len(vcor.param)
+            vcor.update(pvcor)
+            dE, E_old = E - E_old, E
+            rec.append({"iter": it, "E": float(E), "nelec": float(nelec),
+                        "fit_err": float(err)})
+            if dVcor < 1e-5 and abs(dE) < 1e-6 and it > 3:
+                conv = True
+                break
+    return rec, conv, sec, fit.FitVcorFull.n_eval
+
+
+def full_fit_check(device, card, size=PDMET["size"]):
+    """FitVcorFull once on the pDMET lattice (its HF_scf Fock, the mean
+    field's own folded density shifted by a seeded symmetric perturbation
+    as the target): seconds per objective evaluation, and the gradient
+    against central differences in three random directions."""
+    import libdmet_preview_tpu_torch.dmet.hubbard as dmet
+    from libdmet_preview_tpu_torch.ops import embham, fit, mfd
+    U, beta, filling = PDMET["U"], PDMET["beta"], 0.5
+    Lat = dmet.SquareLattice(*size, *PDMET["imp"])
+    Lat.set_Ham(dmet.Ham(Lat, U), use_hcore_as_emb_ham=False, device=device)
+    vcor = dmet.AFInitGuess(PDMET["imp"], U, filling)
+    rho, Mu, _, _ = mfd.HF_scf(Lat, vcor, filling, False, mu0=U * filling,
+                               beta=beta, ires=True)
+    basis = embham.get_emb_basis(Lat, rho)
+    neo = basis.shape[-1]
+    rho_emb = embham.foldRho_k(Lat.R2k(rho), Lat.R2k_basis(basis))
+    t = np.random.RandomState(3).randn(2, neo, neo) * 0.02
+    target = rho_emb + torch.as_tensor(0.5 * (t + t.transpose(0, 2, 1)),
+                                       device=device)
+    fg = fit.full_fit_objective(target, Lat, basis, vcor, beta, filling,
+                                imp_fit=True)
+    p0 = vcor.param.copy()
+    e0, g = fg(p0)
+    rng = np.random.RandomState(0)
+    worst = 0.0
+    for _ in range(3):
+        d = rng.randn(len(g))
+        d /= np.linalg.norm(d)
+        eps = 1e-5
+        num = (fg(p0 + eps * d)[0] - fg(p0 - eps * d)[0]) / (2 * eps)
+        worst = max(worst, abs(g @ d - num) / max(1.0, abs(num)))
+    fit.FitVcorFull.n_eval = 0
+    _sync(device)
+    t0 = time.perf_counter()
+    _, err0, err1 = fit.FitVcorFull(target, Lat, basis, vcor, beta, filling,
+                                    MaxIter=300, imp_fit=True, BFGS=True)
+    _sync(device)
+    dt = time.perf_counter() - t0
+    n_eval = fit.FitVcorFull.n_eval
+    nk = Lat.ncells
+    print("FitVcorFull %dx%d [%s]: %d Hermitian %dx%d blocks per evaluation, "
+          "err %.6e -> %.6e in %d evaluations, %.3f s, %.6f s per evaluation; "
+          "gradient vs central differences in 3 directions: %.3e relative "
+          "(tol 1e-6)" % (size[0], size[1], card, 2 * nk, Lat.nscsites,
+                          Lat.nscsites, err0, err1, n_eval, dt,
+                          dt / max(n_eval, 1), worst))
+    if not (worst <= 1e-6 and err1 < err0 and abs(e0 - err0) < 1e-12):
+        raise AssertionError("FitVcorFull: gradient check or fit failed")
+
+
+def phase_ib_fock(device, card):
+    t0 = time.perf_counter()
+    rec, conv, sec, n_eval = run_ib_fock(device)
+    E = rec[-1]["E"]
+    name = "hub2d 6x6 U=8 Fock embedding, whole-lattice fit"
+    n_it = len(rec)
+    print("%s [%s]: %d iterations, converged %s, E/site %.10f (anchor %.5f, "
+          "diff %.3e, tol %.0e), nelec/site %.10f, fit error %.3e, %.2f s in "
+          "all" % (name, card, n_it, conv, E, IB_FOCK["anchor"],
+                   E - IB_FOCK["anchor"], IB_FOCK["tol"], rec[-1]["nelec"],
+                   rec[-1]["fit_err"], time.perf_counter() - t0))
+    _print_stages(name, card, sec, n_it)
+    fit_s = sum(sec["whole-lattice fit"])
+    print("%s [%s]: %.1f fit evaluations and %.4f s per iteration in the "
+          "fit, %.6f s per evaluation"
+          % (name, card, n_eval / n_it, fit_s / n_it, fit_s / max(n_eval, 1)))
+    if not (abs(E - IB_FOCK["anchor"]) < IB_FOCK["tol"]
+            and abs(rec[-1]["nelec"] - 1.0) < 1e-4):
+        raise AssertionError("%s missed its anchor" % name)
+    full_fit_check(device, card)
+
+
+def _three_band_lattice(device, factory, size, name, **ham_kw):
+    import libdmet_preview_tpu_torch.dmet.hubbard as dmet
+    Lat = getattr(dmet, factory)(*size, 1, 1)
+    Lat.set_Ham(dmet.Hubbard3band_ref(Lat, name=name, **ham_kw),
+                use_hcore_as_emb_ham=True, device=device)
+    return Lat
+
+
+def run_three_band(device, factory=THREE_BAND["factory"],
+                   size=THREE_BAND["size"], n_iter=THREE_BAND["iters"],
+                   keep_first=False, profile_iteration=None):
+    """UHF-DMET on the three-band model with the non-interacting bath:
+    per DMET iteration the mean field, the bath, the dmu loop over
+    MuSolver (step=0.3) until the impurity filling holds, FitVcor and a
+    vcor update.  Iteration profile_iteration runs under torch.profiler.
+    Returns (records, stage seconds, solver, first iteration's (ImpHam
+    copy, nelec) when keep_first, the profiled iteration's idle share)."""
+    import libdmet_preview_tpu_torch.dmet.hubbard as dmet
+    from libdmet_preview_tpu_torch.solvers import FCI
+    from libdmet_preview_tpu_torch.utils import timer
+    filling = THREE_BAND["filling"]
+    Lat = _three_band_lattice(device, factory, size, THREE_BAND["name"])
+    nlo = Lat.nscsites
+    vcor = dmet.VcorLocal(False, False, nlo)
+    vcor.update(np.zeros(vcor.length()))
+    solver = FCI(restricted=False, tol=1e-11, device=device)
+    mu_solver = dmet.MuSolver(adaptive=True)
+    solver_args = {"nelec": (Lat.ncore + Lat.nval) * 2}
+    Mu, last_dmu, rec, first, idle = None, 0.0, [], None, None
+    with timer.recording() as sec:
+        for it in range(n_iter):
+            prof = _Profiled() if it == profile_iteration \
+                else contextlib.nullcontext()
+            with prof:
+                with timer.stage("mean field", device):
+                    rho, Mu, res = dmet.HartreeFock(Lat, vcor, filling, Mu,
+                                                    ires=True)
+                ImpHam, H1e, basis = dmet.ConstructImpHam(
+                    Lat, rho, vcor, matching=False, int_bath=False)
+                ImpHam = dmet.apply_dmu(Lat, ImpHam, basis, last_dmu)
+                if keep_first and first is None:
+                    first = ({"H0": float(ImpHam.H0), "norb": ImpHam.norb,
+                              "H1": ImpHam.H1["cd"].cpu().numpy(),
+                              "H2": ImpHam.H2["ccdd"].cpu().numpy()},
+                             solver_args["nelec"])
+                with timer.stage("impurity solves", device):
+                    for n_mu in range(1, 26):
+                        rhoEmb, E_emb, ImpHam, dmu = mu_solver(
+                            Lat, filling, ImpHam, basis, solver, solver_args,
+                            step=0.3)
+                        last_dmu += dmu
+                        rhoImp, E, nelec = dmet.transformResults(
+                            rhoEmb, E_emb, basis, ImpHam, H1e, lattice=Lat,
+                            last_dmu=last_dmu, int_bath=False, solver=solver,
+                            solver_args=solver_args)
+                        if abs(nelec - 2 * filling) < 5e-7:
+                            break
+                with timer.stage("vcor fit", device):
+                    vcor_new, err = dmet.FitVcor(
+                        rhoEmb, Lat, basis, vcor, np.inf, filling,
+                        MaxIter1=300, MaxIter2=0)
+            if it == profile_iteration:
+                idle = prof.idle
+            dVcor = float(np.linalg.norm(vcor_new.param - vcor.param)
+                          / len(vcor.param))
+            vcor.update(vcor_new.param)
+            rec.append({"iter": it, "E": float(E), "nelec": float(nelec),
+                        "last_dmu": float(last_dmu), "fit_err": float(err),
+                        "dVcor": dVcor, "mu_calls": n_mu,
+                        "gap": np.asarray(res["gap"]).tolist(),
+                        "occ": rhoImp.sum(dim=0).diagonal().cpu().numpy(),
+                        "rho_imp": rhoImp.cpu().numpy()})
+    return rec, sec, solver, first, idle
+
+
+def _check_three_band(rec, nlo):
+    """nelec per site, the cluster's mirror-related occupations and the
+    hole count of the last iteration; returns the list of failed checks."""
+    last = rec[-1]
+    occ = last["occ"]
+    filling = THREE_BAND["filling"]
+    n_cuo2 = nlo // 3
+    holes = 2.0 * nlo - occ.sum()
+    bad = []
+    if not abs(last["nelec"] - 2 * filling) < 1e-4:
+        bad.append("nelec per site %.8f" % last["nelec"])
+    if n_cuo2 == 2:
+        cu = THREE_BAND["cu"]
+        if not abs(occ[cu[0]] - occ[cu[1]]) < 1e-3:
+            bad.append("Cu occupations %s" % occ[cu])
+        for i, j in THREE_BAND["mirror_pairs"]:
+            if not abs(occ[i] - occ[j]) < 1e-3:
+                bad.append("O occupations %d, %d: %s" % (i, j, occ[[i, j]]))
+    elif not abs(occ[1] - occ[2]) < 1e-3:
+        bad.append("O occupations %s" % occ[1:])
+    if not abs(holes / n_cuo2 - 1.0) < 1e-4:
+        bad.append("holes per CuO2 %.8f" % (holes / n_cuo2))
+    if not np.all(np.isfinite(last["rho_imp"])) or not np.isfinite(last["E"]):
+        bad.append("non-finite output")
+    return bad
+
+
+def fci_card_vs_cpu(first, device, card, budget_s):
+    """The first iteration's impurity problem on the card against the CPU
+    through the port's own FCI: one sigma application on a seeded random
+    vector (1e-10 relative), and the whole solve (E 1e-8, rdm1 1e-7) when
+    the CPU's sigma time times the card's sigma count fits budget_s."""
+    from libdmet_preview_tpu_torch import interop
+    from libdmet_preview_tpu_torch.solvers import FCI, fci
+    ham, nelec = first
+    cpu = torch.device("cpu")
+    out = {}
+    for dev in (device, cpu):
+        H = interop.integral_from_numpy(ham["norb"], False, ham["H0"],
+                                        ham["H1"], ham["H2"], dev)
+        solver = FCI(restricted=False, tol=1e-11, device=dev)
+        h1e, eri = solver._ints(H)
+        ne = (nelec // 2, nelec // 2)
+        sigma, _ = fci.make_sigma(h1e, eri, ham["norb"], ne, dev)
+        na = fci.num_strings(ham["norb"], ne[0])
+        c = torch.as_tensor(np.random.RandomState(3).randn(na, na),
+                            device=dev)
+        _sync(dev)
+        t0 = time.perf_counter()
+        s = sigma(c)
+        _sync(dev)
+        out[dev.type] = (H, solver, s.cpu(), time.perf_counter() - t0)
+    rel = float((out["cuda"][2] - out["cpu"][2]).abs().max()
+                / out["cpu"][2].abs().max())
+    print("three-band FCI [%s]: one sigma application on %d determinants, "
+          "card %.4f s, CPU %.3f s, card vs CPU %.3e relative (tol 1e-10)"
+          % (card, na * na, out["cuda"][3], out["cpu"][3], rel))
+    if not rel <= 1e-10:
+        raise AssertionError("sigma on the card disagrees with the CPU")
+    H_d, sol_d = out["cuda"][:2]
+    rdm_d, E_d = sol_d.run(H_d, nelec=nelec)
+    est = out["cpu"][3] * sol_d.n_sigma
+    if est > budget_s:
+        print("three-band FCI [%s]: card E %.10f in %d sigma builds; the "
+              "whole solve on the CPU would take ~%.0f s (> %.0f s): the "
+              "sigma application above stands for it"
+              % (card, E_d, sol_d.n_sigma, est, budget_s))
+        return
+    H_c, sol_c = out["cpu"][:2]
+    rdm_c, E_c = sol_c.run(H_c, nelec=nelec)
+    dE = abs(E_d - E_c)
+    dr = float((rdm_d.cpu() - rdm_c).abs().max())
+    print("three-band FCI [%s]: whole solve card vs CPU |dE| %.3e (tol "
+          "1e-8), rdm1 %.3e (tol 1e-7), %d / %d sigma builds"
+          % (card, dE, dr, sol_d.n_sigma, sol_c.n_sigma))
+    if not (dE <= 1e-8 and dr <= 1e-7):
+        raise AssertionError("FCI on the card disagrees with the CPU")
+
+
+def phase_three_band(device, card):
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    rec, sec, solver, first, idle = run_three_band(
+        device, keep_first=True, profile_iteration=THREE_BAND["profiled"])
+    total = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(device)
+    n_it = len(rec)
+    name = "three-band %s(%d, %d, 1, 1) %s" % (
+        THREE_BAND["factory"], *THREE_BAND["size"], THREE_BAND["name"])
+    nlo = len(rec[-1]["occ"])
+    na = int(round(np.sqrt(solver.ci.numel())))
+    print("%s [%s]: %d DMET iterations in %.2f s, %d x %d = %d determinants, "
+          "%d FCI.run calls, %d sigma builds (%.1f per run), peak device "
+          "memory %.3f GB"
+          % (name, card, n_it, total, na, na, na * na, solver.n_run,
+             solver.n_sigma, solver.n_sigma / solver.n_run, peak / 1e9))
+    _print_stages(name, card, sec, n_it)
+    for r in rec:
+        print("%s [%s]: iteration %d E/site %.10f nelec/site %.10f dmu %.8f "
+              "(%d MuSolver calls) fit err %.3e dVcor %.3e mean-field gap %s"
+              % (name, card, r["iter"], r["E"], r["nelec"], r["last_dmu"],
+                 r["mu_calls"], r["fit_err"], r["dVcor"], r["gap"]))
+    occ = rec[-1]["occ"]
+    print("%s [%s]: occupations summed over spin %s; holes per CuO2 %.8f; "
+          "x-bond minus y-bond oxygen occupation %.3e (not a symmetry of the "
+          "two-CuO2 cluster)"
+          % (name, card, np.array2string(occ, precision=8),
+             (2.0 * nlo - occ.sum()) / (nlo // 3),
+             occ[2:4].mean() - occ[4:6].mean() if nlo == 6 else
+             occ[1] - occ[2]))
+    bad = _check_three_band(rec, nlo)
+    if bad or na * na != 853776:
+        raise AssertionError("%s: %s" % (name, bad or "CI size %d" % (na * na)))
+    print("%s [%s]: idle share of the card over iteration %d (run under "
+          "torch.profiler, which adds to its stage seconds): %s"
+          % (name, card, THREE_BAND["profiled"], "not measured (the profiler "
+             "gave no device time)" if idle is None else "%.4f" % idle))
+    fci_card_vs_cpu(first, device, card, THREE_BAND["cpu_solve_seconds"])
+
+
+def run_nearest_one_shot(device, size=NEAREST["size"]):
+    """Restricted one-shot DMET with the intercell-Vpd 'nearest' H2:
+    update_Ham (stripe K), the interacting-bath transform, FCI, energy."""
+    import libdmet_preview_tpu_torch.dmet.hubbard as dmet
+    from libdmet_preview_tpu_torch.solvers import FCI
+    Lat = _three_band_lattice(device, "Square3Band", size, NEAREST["name"],
+                              ignore_intercell=False)
+    nlo = Lat.nscsites
+    vcor = dmet.VcorLocal(True, False, nlo)
+    vcor.update(np.zeros(vcor.length()))
+    rho, mu, res = dmet.RHartreeFock(Lat, vcor, NEAREST["filling"], None,
+                                     ires=True)
+    Lat.update_Ham(np.asarray(rho) * 2.0)
+    ImpHam, H1e, basis = dmet.ConstructImpHam(Lat, rho, vcor, matching=False,
+                                              int_bath=True)
+    solver = FCI(restricted=True, tol=1e-11, device=device)
+    nelec = (Lat.ncore + Lat.nval) * 2
+    rhoEmb, E_emb = solver.run(ImpHam, nelec=nelec)
+    _, E, nel = dmet.transformResults(
+        rhoEmb, E_emb, basis, ImpHam, H1e, lattice=Lat, last_dmu=0.0,
+        int_bath=True, solver=solver, solver_args={"nelec": nelec})
+    return {"Lat": Lat, "basis": basis, "ImpHam": ImpHam, "E_emb": E_emb,
+            "E": E, "nelec": nel, "fock": np.asarray(Lat.fock_lo_R),
+            "rho": np.asarray(rho)}
+
+
+def phase_nearest(device, card):
+    from libdmet_preview_tpu_torch.ops import embham
+    from libdmet_preview_tpu_torch.utils.misc import as_f64
+    t0 = time.perf_counter()
+    d = run_nearest_one_shot(device)
+    c = run_nearest_one_shot(torch.device("cpu"))
+    Lat, B = d["Lat"], d["basis"]
+    eri_R = as_f64(Lat.getH2(kspace=False), B.device)
+    n_blocks = int((eri_R.abs().amax(dim=(1, 2, 3, 4)) > 0).sum())
+    H2 = embham.transform_eri_nearest(B, eri_R, lattice=Lat)
+    loop = embham._transform_eri_nearest_loop(B, eri_R, lattice=Lat)
+    nb = B.shape[-1]
+    Bd = B.reshape(1, -1, nb)
+    Bc = c["basis"].to(B.device).reshape(1, -1, nb)
+    diffs = {
+        "batched vs loop H2": (float((H2 - loop).abs().max()), 1e-11),
+        "path H2 vs batched": (float((d["ImpHam"].H2["ccdd"] - H2)
+                                     .abs().max()), 0.0),
+        "HF rho_R": (float(np.abs(d["rho"] - c["rho"]).max()), 1e-8),
+        "updated Fock": (float(np.abs(d["fock"] - c["fock"]).max()), 1e-8),
+        "bath projector": (float((Bd @ Bd.transpose(-1, -2)
+                                  - Bc @ Bc.transpose(-1, -2)).abs().max()),
+                           1e-8),
+        "embedding E": (abs(d["E_emb"] - c["E_emb"]), 1e-8),
+        "E per site": (abs(d["E"] - c["E"]), 1e-8),
+        "nelec per site": (abs(d["nelec"] - c["nelec"]), 1e-8),
+    }
+    print("nearest H2 Square3Band(%d, %d, 1, 1) [%s]: %d of %d cell blocks "
+          "non-zero, neo %d, E/site %.10f, nelec/site %.10f, %.2f s (card "
+          "and CPU)" % (*NEAREST["size"], card, n_blocks, Lat.ncells, nb,
+                        d["E"], d["nelec"], time.perf_counter() - t0))
+    for k, (v, tol) in diffs.items():
+        print("nearest H2: cuda vs cpu %-20s %.3e (tol %.0e)" % (k, v, tol))
+    bad = [k for k, (v, tol) in diffs.items() if not v <= tol]
+    if bad or Lat.H2_format != "nearest" or not np.isfinite(d["E"]):
+        raise AssertionError("nearest H2 phase failed: %s" % bad)
+
+
+def csc_step(r):
+    """Charge self-consistency after the one-shot run r of phase 6:
+    update_lattice_csc from the embedded UHF density, the next iteration's
+    ConstructImpHam on the updated Fock and stored global density, and the
+    DMET energy of the solved problem with the rebuilt veff."""
+    import libdmet_preview_tpu_torch.dmet.hubbard as dmet
+    from libdmet_preview_tpu_torch.ops import embham
+    from libdmet_preview_tpu_torch.utils import timer
+    Lat = r["Lat"]
+    with timer.recording() as sec:
+        with timer.stage("update_lattice_csc", Lat.device):
+            dfock, veff = embham.update_lattice_csc(Lat, r["rdm1"],
+                                                    r["basis"])
+        with timer.stage("ConstructImpHam", Lat.device):
+            ImpHam2, _, basis2 = dmet.ConstructImpHam(
+                Lat, Lat.rdm1_lo_R, r["vcor"], matching=True, int_bath=True)
+        with timer.stage("get_E_dmet", Lat.device):
+            E = dmet.get_E_dmet(r["basis"], Lat, r["ImpHam"], 0.0,
+                                r["solver"], solver_args={"nelec": r["nel"]},
+                                veff=veff, rdm1_emb=r["rdm1"])
+    ev = torch.linalg.eigvalsh(ImpHam2.H1["cd"]).cpu().numpy()
+    return {"dfock": dfock, "veff": veff, "E": E, "H1 spectrum": ev,
+            "neo": basis2.shape[-1],
+            "fock": np.asarray(Lat.fock_lo_R)}, sec
+
+
+def phase_abinitio_csc(d, c, device, card):
+    """8d (ii) on the card (d) and on the CPU (c); the launches of the
+    card's second ConstructImpHam are counted from 0, and its plain
+    versions must stay uncalled there."""
+    from libdmet_preview_tpu_torch.ops import eri_kernels as ek
+    plain_calls = {"cuda": 0}
+    plain = ek.syrk_df_plain
+
+    def counted_plain(F, F2=None):
+        if F.device.type == "cuda":
+            plain_calls["cuda"] += 1
+        return plain(F, F2)
+
+    # the path: counts start at 0 here
+    _sync(device)
+    ek.syrk_df.launches = 0
+    ek.syrk_df.cross_launches = 0
+    ek.syrk_df_plain = counted_plain
+    try:
+        out_d, sec = csc_step(d)
+    finally:
+        ek.syrk_df_plain = plain
+    _sync(device)
+    launches = {"syrk_df": ek.syrk_df.launches,
+                "syrk_df_cross": ek.syrk_df.cross_launches}
+    out_c, _ = csc_step(c)
+    print("abinitio CSC [%s]: max Fock change %.6e, E/cell with the rebuilt "
+          "veff %.10f (one-shot %.10f); second ConstructImpHam: syrk_df "
+          "launches %d, cross launches %d, plain-version calls on CUDA "
+          "tensors %d"
+          % (card, out_d["dfock"], out_d["E"] / AI_NLO, d["E_cell"],
+             launches["syrk_df"], launches["syrk_df_cross"],
+             plain_calls["cuda"]))
+    _print_stages("abinitio CSC", card, sec, 1,
+                  skip=("bath", "H1", "H2"))
+    tol = 1e-8
+    diffs = {"dfock": abs(out_d["dfock"] - out_c["dfock"]),
+             "veff": float(np.abs(out_d["veff"] - out_c["veff"]).max()),
+             "updated Fock": float(np.abs(out_d["fock"]
+                                          - out_c["fock"]).max()),
+             "H1 spectrum": float(np.abs(out_d["H1 spectrum"]
+                                         - out_c["H1 spectrum"]).max()),
+             "E": abs(out_d["E"] - out_c["E"])}
+    for k, v in diffs.items():
+        print("abinitio CSC: cuda vs cpu %-14s %.3e (tol %.0e)" % (k, v, tol))
+    bad = [k for k, v in diffs.items() if not v <= tol]
+    if launches != {"syrk_df": 2, "syrk_df_cross": 1} \
+            or plain_calls["cuda"] != 0 or out_d["neo"] != PATH_SHAPE[1]:
+        bad.append("launch counts %s, plain calls %d"
+                   % (launches, plain_calls["cuda"]))
+    if bad or not np.isfinite(out_d["E"]):
+        raise AssertionError("abinitio CSC failed: %s" % bad)
+    return launches
+
+
 def main():
     t_start = time.perf_counter()
     device, card = phase_device()
@@ -1117,11 +1788,17 @@ def main():
     phase_split_scan(device)
     launches_bench, ms_iter = phase_bench(device)
     phase_hubbard(device)
-    launches_ai = phase_abinitio_uhf(device)
+    launches_ai, run_d, run_c = phase_abinitio_uhf(device)
     with _quiet():
+        launches_csc = phase_abinitio_csc(run_d, run_c, device, card)
+        del run_d, run_c
         phase_dmet_loop_hubbard(device, card)
         launches_chol, err_chol, times_chol = phase_dmet_loop_cholesky(
             device, card)
+        phase_pdmet(device, card)
+        phase_ib_fock(device, card)
+        phase_nearest(device, card)
+        phase_three_band(device, card)
     max_abs["syrk_df"] = max(max_abs["syrk_df"], err_chol)
     print("card: %s" % card)
     naux, neo = PATH_SHAPE
@@ -1131,10 +1808,12 @@ def main():
             ("syrk_df", "tri", "libdmet_preview_tpu/ops/pallas_eri.py:163",
              {"bench": launches_bench,
               "abinitio_uhf": launches_ai["syrk_df"],
+              "abinitio_csc": launches_csc["syrk_df"],
               "dmet_loop_cholesky": launches_chol}),
             ("syrk_df_cross", "cross",
              "libdmet_preview_tpu/ops/pallas_eri.py:45",
-             {"abinitio_uhf": launches_ai["syrk_df_cross"]})]:
+             {"abinitio_uhf": launches_ai["syrk_df_cross"],
+              "abinitio_csc": launches_csc["syrk_df_cross"]})]:
         ms, plain_ms = times[(name, naux, neo)]
         bound_ms, bound_by, _ = kernel_bound(kind, naux, npair)
         print("%s at the path shape (naux=%d, neo=%d): kernel/cuBLAS %.3f, "

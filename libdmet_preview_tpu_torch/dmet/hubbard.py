@@ -33,12 +33,16 @@ from libdmet_preview_tpu_torch.utils import logger as log
 from libdmet_preview_tpu_torch.utils.misc import as_f64
 from libdmet_preview_tpu_torch.utils.timer import stage
 from libdmet_preview_tpu_torch.models.lattice import (  # noqa: F401
-    ChainLattice, SquareLattice, SquareAFM, BipartiteSquare)
+    ChainLattice, SquareLattice, SquareAFM, Square3Band, Square3BandAFM,
+    Square3BandSymm, CubicLattice, HoneycombLattice, BipartiteSquare)
 from libdmet_preview_tpu_torch.models.hamiltonian import (  # noqa: F401
-    HubbardHamiltonian as Ham)
+    HubbardHamiltonian as Ham, HubbardExtended, Hubbard3band,
+    Hubbard3band_ref, HubbardDCA)
 from libdmet_preview_tpu_torch.models.integral import Integral
 from libdmet_preview_tpu_torch.ops import embham, mfd, fit as fit_mod
-from libdmet_preview_tpu_torch.ops.vcor import VcorLocal
+from libdmet_preview_tpu_torch.ops.vcor import (  # noqa: F401
+    VcorLocal, VcorLocalPhSymm, VcorDCAPhSymm, VcorSymm, VcorSymmBogo,
+    VcorNonLocal, VcorKpoints, VcorRestricted)
 from libdmet_preview_tpu_torch.ops.diis import DIIS, FDiisContext  # noqa: F401
 from libdmet_preview_tpu_torch.ops.fit import (  # noqa: F401
     addDiag, make_vcor_trace_unchanged, vcor_diag_average)
@@ -201,32 +205,60 @@ def transformResults(rhoEmb, E, basis, ImpHam, H1e=None, int_bath=False,
     if int_bath:
         solver = kwargs.get("solver", None)
         solver_args = kwargs.get("solver_args", {})
+        kwargs.setdefault("rdm1_emb", rhoEmb)
         Efrag = get_E_dmet(basis, lattice, ImpHam, last_dmu, solver,
                            solver_args=solver_args, imp_idx=list(imp_idx),
                            **{k: v for k, v in kwargs.items()
                               if k in ("add_vcor_to_E", "vcor", "E1",
-                                       "veff")})
+                                       "rdm1_emb", "veff")})
     log.debug(0, "E0 = %20.12f, E1 = %20.12f, E2 = %20.12f, E = %20.12f",
               lattice.getH0(), E1, E2, Efrag)
     return rhoImp, Efrag / nscsites, nelec / nscsites
 
 
 def get_H_dmet(basis, lattice, ImpHam, last_dmu, imp_idx=None,
-               add_vcor_to_E=False, vcor=None, E1=None, veff=None, **kwargs):
+               add_vcor_to_E=False, vcor=None, E1=None, rdm1_emb=None,
+               veff=None, **kwargs):
     """Scaled (democratic-partitioning) DMET Hamiltonian for the
-    interacting-bath energy functional."""
-    if E1 is not None or veff is not None:
-        raise NotImplementedError("get_H_dmet: the E1-from-glob and "
-                                  "charge-self-consistency (veff) variants "
-                                  "are not ported")
+    interacting-bath energy functional.
+
+    E1: optional externally evaluated one-body energy (hcore + J/K from
+    the GLOBAL density matrix, embham.get_E1_from_glob): the scaled H1
+    then only removes the locally double-counted veff of rdm1_emb and H0
+    absorbs E1.
+
+    veff: optional lattice veff in the LO basis (stripe (spin, R, n, n)),
+    typically rebuilt from the correlated GLOBAL density matrix (charge
+    self-consistency, embham.update_lattice_csc): the core JK term then
+    becomes transform_h1(veff) minus the locally double-counted veff of
+    rdm1_emb, instead of the mean-field lattice.JK_core."""
     spin = basis.shape[0]
     nbasis = basis.shape[-1]
     if imp_idx is None:
         imp_idx = list(range(lattice.nimp))
     env_idx = _env_idx(nbasis, imp_idx)
+    H2 = ImpHam.H2["ccdd"]
+    H2_scaled = get_H2_scaled(H2, imp_idx, env_idx)
+    if E1 is not None:
+        log.eassert(rdm1_emb is not None, "E1-from-glob needs rdm1_emb")
+        veff_loc = embham.get_veff(as_f64(rdm1_emb, basis.device), H2)
+        H1_scaled = get_H1_scaled(-veff_loc / spin, imp_idx, env_idx)
+        return Integral(nbasis, spin == 1, False,
+                        float(np.real(E1)) + lattice.getH0(),
+                        {"cd": H1_scaled}, {"ccdd": H2_scaled})
     basis_k = lattice.R2k_basis(basis)
     H1_scaled = embham.transform_h1(lattice.getH1(kspace=True), basis_k)
-    if lattice.JK_core is not None:
+    if veff is not None:
+        # charge self-consistency: JK_core from the provided lattice veff
+        # minus the local double counting
+        veff = np.asarray(veff)
+        if veff.ndim == 3:
+            veff = veff[None]
+        JK_core = embham.transform_h1(lattice.R2k(veff), basis_k)
+        JK_core = JK_core - embham.get_veff(
+            as_f64(rdm1_emb, basis.device) * (2.0 / spin), H2)
+        H1_scaled = H1_scaled + 0.5 * JK_core
+    elif lattice.JK_core is not None:
         H1_scaled = H1_scaled + 0.5 * lattice.JK_core
     if add_vcor_to_E:
         vmat = as_f64(vcor.get(), basis.device)
@@ -234,7 +266,6 @@ def get_H_dmet(basis, lattice, ImpHam, last_dmu, imp_idx=None,
             H1_scaled[s] += 0.5 * embham.transform_local(basis[s], vmat[s])
             H1_scaled[s] -= 0.5 * embham.transform_imp(basis[s], vmat[s])
     H1_scaled = get_H1_scaled(H1_scaled, imp_idx, env_idx)
-    H2_scaled = get_H2_scaled(ImpHam.H2["ccdd"], imp_idx, env_idx)
     return Integral(nbasis, spin == 1, False, lattice.getH0(),
                     {"cd": H1_scaled}, {"ccdd": H2_scaled})
 

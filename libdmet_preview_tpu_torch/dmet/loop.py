@@ -47,7 +47,8 @@ def _make_solver(config, device):
         return solvers.SCFSolver(restricted=config.restricted, device=device)
     if name in ("CCSD", "MP2"):
         raise NotImplementedError(
-            "run_dmet: the %s solver comes with the coupled-cluster slice"
+            "run_dmet: the %s solver comes with the coupled-cluster slice "
+            "(Slice 3)"
             % name)
     if name == "CASCI":
         raise ValueError("CASCI needs an explicit (ncas, nelecas); pass a "

@@ -17,7 +17,7 @@ from libdmet_preview_tpu_torch.models.abinitio import AbInitioHam
 from libdmet_preview_tpu_torch.models.hamiltonian import HamNonInt
 from libdmet_preview_tpu_torch.models.integral import Integral
 from libdmet_preview_tpu_torch.models.lattice import MeshLattice
-from libdmet_preview_tpu_torch.ops.vcor import VcorLocal
+from libdmet_preview_tpu_torch.ops.vcor import VcorLocal, VcorNonLocal
 from libdmet_preview_tpu_torch.utils.config import DmetConfig
 from libdmet_preview_tpu_torch.utils.misc import as_f64
 
@@ -25,18 +25,22 @@ from libdmet_preview_tpu_torch.utils.misc import as_f64
 def lattice_from_numpy(kmesh, nscsites, hcore_R, fock_R, ovlp_R=None,
                        val_idx=None, virt_idx=(), core_idx=(),
                        use_hcore_as_emb_ham=True, H2=None, rdm1_R=None,
-                       device=torch.device("cuda")):
+                       spin_dim_H2=None, device=torch.device("cuda")):
     """A port model LatticeModel on `kmesh` with `nscsites` orbitals per
     cell, carrying the stripe operators hcore_R / fock_R ((spin,) ncells,
-    n, n), the overlap ovlp_R (identity when None), the local two-body
-    term H2 ((n,)*4, zero when None) and the stored density rdm1_R, with
-    the given orbital partition (all orbitals valence when val_idx is
-    None).  The mean field and embedding run on `device`."""
+    n, n; the Fock and density as they stand after the JAX lattice's
+    update_Ham), the overlap ovlp_R (identity when None), the two-body
+    term H2 (zero when None) and the stored density rdm1_R, with the given
+    orbital partition (all orbitals valence when val_idx is None).  H2's
+    format follows its shape: 'local' (n,)*4, 'nearest' (ncells, n^4),
+    'full' (ncells^3, n^4), or with spin_dim_H2 'spin local'
+    (spin_dim_H2, n^4).  The mean field and embedding run on `device`."""
     lat = MeshLattice(kmesh, nscsites)
     hcore_R = np.asarray(hcore_R, dtype=float)
     H2 = np.zeros((nscsites,) * 4) if H2 is None \
         else np.asarray(H2, dtype=float)
-    ham = HamNonInt(lat, hcore_R, H2, Fock=np.asarray(fock_R, dtype=float))
+    ham = HamNonInt(lat, hcore_R, H2, Fock=np.asarray(fock_R, dtype=float),
+                    spin_dim_H2=spin_dim_H2)
     lat.set_Ham_model(ham, ovlp=None if ovlp_R is None
                       else np.asarray(ovlp_R, dtype=float),
                       rdm1=None if rdm1_R is None
@@ -78,6 +82,19 @@ def vcor_local_from_numpy(restricted, nscsites, param):
     """A port VcorLocal (non-Bogoliubov) holding the parameter vector
     `param` of the JAX package's VcorLocal with the same layout."""
     v = VcorLocal(restricted, False, nscsites)
+    param = np.asarray(param, dtype=float)
+    if param.shape != (v.length(),):
+        raise ValueError("vcor param shape %s, expected (%d,)"
+                         % (param.shape, v.length()))
+    v.update(param)
+    return v
+
+
+def vcor_nonlocal_from_numpy(restricted, lattice, param, rcells=None):
+    """A port VcorNonLocal on the port lattice `lattice` holding the
+    parameter vector `param` and the cell list `rcells` of the JAX
+    package's VcorNonLocal (same layout)."""
+    v = VcorNonLocal(restricted, False, lattice, rcells=rcells)
     param = np.asarray(param, dtype=float)
     if param.shape != (v.length(),):
         raise ValueError("vcor param shape %s, expected (%d,)"

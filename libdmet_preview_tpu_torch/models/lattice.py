@@ -215,6 +215,29 @@ class LatticeModel(object):
         return fourier.k2R(basis_k, self.kmesh)
 
     # ------------------------------------------------------------------
+    # stripe <-> full supercell matrices
+    # ------------------------------------------------------------------
+    def expand(self, A):
+        """Stripe (.., ncells, n, n) -> full (.., ncells*n, ncells*n);
+        block (I, J) = A[I - J]."""
+        A = np.asarray(A)
+        n = A.shape[-1]
+        nc = self.ncells
+        blocks = A[..., self._sub_tab, :, :]  # (.., I, J, n, n)
+        blocks = np.moveaxis(blocks, -3, -2)  # (.., I, n, J, n)
+        return blocks.reshape(A.shape[:-3] + (nc * n, nc * n))
+
+    def extract_stripe(self, A):
+        A = np.asarray(A)
+        nc = self.ncells
+        n = A.shape[-1] // nc
+        return A.reshape(A.shape[:-2] + (nc, n, nc, n))[..., :, :, 0, :]
+
+    def transpose_stripe(self, A):
+        A = np.asarray(A)
+        return np.swapaxes(A[..., self._neg_map, :, :], -1, -2)
+
+    # ------------------------------------------------------------------
     # neighbor search (geometry)
     # ------------------------------------------------------------------
     def neighbor(self, dis=1.0, sitesA=None, sitesB=None, search_range=1):
@@ -241,7 +264,8 @@ class LatticeModel(object):
     def set_Ham_model(self, Ham, rdm1=None, fock=None, ovlp=None,
                       eri_symmetry=4, use_hcore_as_emb_ham=True,
                       device=torch.device("cuda")):
-        """Attach a model Hamiltonian (stripe H1/Fock, 'local' H2).  The
+        """Attach a model Hamiltonian (stripe H1/Fock; H2 'local',
+        'nearest', 'full' or 'spin local').  The
         mean field and the embedding built on this lattice run on
         `device`."""
         self.device = torch.device(device)
@@ -315,11 +339,11 @@ class LatticeModel(object):
             self.fock_lo_k = fock_lo_k
             self.fock_lo_R = np.asarray(self.k2R(fock_lo_k))
             return
-        if self.H2_format != "local":
-            raise NotImplementedError(
-                "update_Ham: only the 'local' H2 format is ported (got %s); "
-                "'nearest' comes with the rest of the model-lattice slice"
-                % self.H2_format)
+        if self.H2_format == "nearest":
+            self._update_Ham_nearest(rdm1_lo_R)
+            return
+        log.eassert(self.H2_format == "local",
+                    "update_Ham implemented for local and nearest H2")
         eri = np.asarray(self.getH2(kspace=False))
         dm0 = rdm1_lo_R[:, 0]  # cell-averaged density = rho(R=0)
         vj, vk = pbc_helper.get_jk_local(eri, dm0, self.device)
@@ -338,6 +362,33 @@ class LatticeModel(object):
                 hcore = np.asarray([hcore, hcore])
             fock_R = np.array(hcore, copy=True)
             fock_R[:, 0] = fock_R[:, 0] + JK
+        self.fock_lo_R = fock_R
+        self.fock_lo_k = self.R2k(self.fock_lo_R)
+
+    def _update_Ham_nearest(self, rdm1_lo_R):
+        """Fock of the 'nearest' H2 format: J is local (uniform density),
+        K is a stripe.  get_jk_nearest's vk[R] is the exchange block
+        (0, R), so the stripe block K_stripe[R] = block(R, 0) is vk[R]^T
+        (K is symmetric).  The JAX package takes vk[(-R) % ncells]^T, the
+        block (-R, 0): the same for a model whose exchange has
+        K(R) = K(-R), as the extended Hubbard chain's."""
+        from libdmet_preview_tpu_torch.ops import pbc_helper
+        eri_R = np.asarray(self.getH2(kspace=False))
+        vj, vk = pbc_helper.get_jk_nearest(eri_R, rdm1_lo_R, self.device)
+        spin = rdm1_lo_R.shape[0]
+        hcore = self.hcore_lo_R
+        if spin == 1:       # spin-traced storage
+            K = np.swapaxes(vk[0], -1, -2)
+            fock_R = np.array(hcore if hcore.ndim == 3 else hcore[0],
+                              copy=True)
+            fock_R[0] += vj[0]
+            fock_R -= 0.5 * K
+        else:
+            if hcore.ndim == 3:
+                hcore = np.asarray([hcore, hcore])
+            fock_R = np.array(hcore, copy=True)
+            fock_R[:, 0] += vj[0] + vj[1]
+            fock_R -= np.swapaxes(vk, -1, -2)
         self.fock_lo_R = fock_R
         self.fock_lo_k = self.R2k(self.fock_lo_R)
 
@@ -411,6 +462,85 @@ def SquareAFM(lx, ly, scx, scy):
     sc = SuperCell(uc, np.asarray([scx, scy]))
     lat = LatticeModel(sc, np.asarray([lx // scx, ly // scy]))
     lat.neighborDist = [1.0, np.sqrt(2.0), 2.0]
+    return lat
+
+
+def _square_lattice(uc, lx, ly, scx, scy):
+    sc = SuperCell(uc, np.asarray([scx, scy]))
+    lat = LatticeModel(sc, np.asarray([lx // scx, ly // scy]))
+    lat.neighborDist = [1.0, np.sqrt(2.0), 2.0]
+    return lat
+
+
+def Square3Band(lx, ly, scx, scy):
+    """2D 3-band (CuO2) lattice, 1 CuO2 per cell."""
+    log.eassert(lx % scx == 0 and ly % scy == 0,
+                "incompatible lattice/supercell sizes")
+    uc = UnitCell(np.eye(2) * 2.0,
+                  [(np.array([0.0, 0.0]), "Cu"),
+                   (np.array([1.0, 0.0]), "O"),
+                   (np.array([0.0, 1.0]), "O")])
+    return _square_lattice(uc, lx, ly, scx, scy)
+
+
+def Square3BandAFM(lx, ly, scx, scy, symm=True):
+    """2D 3-band lattice, AFM cell with 2 CuO2 units."""
+    log.eassert(lx % scx == 0 and ly % scy == 0,
+                "incompatible lattice/supercell sizes")
+    if symm:
+        oxygens = [[2.0, -2.0], [2.0, 0.0], [1.0, 1.0], [3.0, 1.0]]
+    else:
+        oxygens = [[0.0, 0.0], [2.0, 0.0], [1.0, 1.0], [1.0, -1.0]]
+    uc = UnitCell(np.array([[2.0, -2.0], [2.0, 2.0]]),
+                  [(np.array([1.0, 0.0]), "Cu"),
+                   (np.array([3.0, 0.0]), "Cu")]
+                  + [(np.array(pos), "O") for pos in oxygens])
+    return _square_lattice(uc, lx, ly, scx, scy)
+
+
+def Square3BandSymm(lx, ly, scx=1, scy=1):
+    """2D 3-band lattice, 2x2 symmetric supercell (12 orbitals)."""
+    uc = UnitCell(np.eye(2) * 4.0, [
+        (np.array([1.0, 1.0]), "Cu"),
+        (np.array([0.0, 1.0]), "O"),
+        (np.array([1.0, 2.0]), "O"),
+        (np.array([1.0, 3.0]), "Cu"),
+        (np.array([1.0, 4.0]), "O"),
+        (np.array([2.0, 3.0]), "O"),
+        (np.array([3.0, 3.0]), "Cu"),
+        (np.array([4.0, 3.0]), "O"),
+        (np.array([3.0, 2.0]), "O"),
+        (np.array([3.0, 1.0]), "Cu"),
+        (np.array([3.0, 0.0]), "O"),
+        (np.array([2.0, 1.0]), "O"),
+    ])
+    sc = SuperCell(uc, np.asarray([scx, scy]))
+    lat = LatticeModel(sc, np.asarray([lx, ly]))
+    lat.neighborDist = [1.0, np.sqrt(2.0), 2.0]
+    return lat
+
+
+def CubicLattice(lx, ly, lz, scx, scy, scz):
+    """3D 1-band cubic lattice."""
+    log.eassert(lx % scx == 0 and ly % scy == 0 and lz % scz == 0,
+                "incompatible lattice/supercell sizes")
+    uc = UnitCell(np.eye(3), [(np.array([0.0, 0.0, 0.0]), "X")])
+    sc = SuperCell(uc, np.asarray([scx, scy, scz]))
+    lat = LatticeModel(sc, np.asarray([lx // scx, ly // scy, lz // scz]))
+    lat.neighborDist = [1.0, np.sqrt(2.0), np.sqrt(3.0)]
+    return lat
+
+
+def HoneycombLattice(lx, ly, scx, scy):
+    """2D honeycomb (graphene) lattice, 2 sites per unit cell."""
+    log.eassert(lx % scx == 0 and ly % scy == 0,
+                "incompatible lattice/supercell sizes")
+    a = np.array([[1.5, 0.5 * np.sqrt(3.0)], [1.5, -0.5 * np.sqrt(3.0)]])
+    uc = UnitCell(a, [(np.array([0.0, 0.0]), "A"),
+                      (np.array([1.0, 0.0]), "B")])
+    sc = SuperCell(uc, np.asarray([scx, scy]))
+    lat = LatticeModel(sc, np.asarray([lx // scx, ly // scy]))
+    lat.neighborDist = [1.0, np.sqrt(3.0), 2.0]
     return lat
 
 

@@ -1,9 +1,10 @@
 """
 Schmidt bath construction and embedding-Hamiltonian transforms (PyTorch
-port of libdmet_preview_tpu/ops/embham.py: transform_h1 / foldRho_k,
-transform_local, transform_imp, transform_eri_local, unit2emb, get_veff,
-the SVD bath with basis matching, get_emb_Ham for the 'local' and
-'cholesky' H2 formats with the interacting and the non-interacting bath).
+port of libdmet_preview_tpu/ops/embham.py: the one- and two-body
+transforms for the 'local', 'nearest', 'full', 'spin local' and 'cholesky'
+H2 formats with the interacting and the non-interacting bath, the SVD bath
+with basis matching, the democratic global density matrices and the
+charge-self-consistency update).
 
 Everything runs on the device of its tensor inputs (the lattice's device).
 The k-space identity
@@ -13,7 +14,10 @@ The k-space identity
 is one batched complex GEMM chain; the two-body part is
 eri_transform.get_emb_eri_chol for Cholesky factors (hand-written DF syrk
 kernels on CUDA) and two einsum chains over the cell axis for a local
-lattice ERI.
+lattice ERI ('nearest' blocks are gathered by the lattice's cell-addition
+table and contracted in one batched einsum).  Functions that update the
+lattice (get_rho_glob_R, get_rdm1_idem, update_lattice_csc) return host
+NumPy stripes like the lattice operators they feed.
 """
 
 import numpy as np
@@ -86,6 +90,115 @@ def transform_eri_local(basis_R, H2):
     return torch.stack([t4(H2aa, basis_R[0], basis_R[0]),
                         t4(H2bb, basis_R[1], basis_R[1]),
                         t4(H2ab, basis_R[0], basis_R[1])])
+
+
+def _spin_pairs(spin):
+    """ccdd channel order (aa,) or (aa, bb, ab)."""
+    return [(0, 0)] if spin == 1 else [(0, 0), (1, 1), (0, 1)]
+
+
+def _add_table(lattice, ncells, device):
+    """(C, R) -> index of cell C + R as a device tensor.  A 2D/3D mesh is
+    not 1D-cyclic in its flattened order, so the lattice's own table is
+    used whenever a lattice is given."""
+    if lattice is not None:
+        add = np.asarray(lattice._add_tab)
+    else:
+        add = (np.arange(ncells)[:, None] + np.arange(ncells)[None, :]) % ncells
+    return torch.as_tensor(add, dtype=torch.long, device=device)
+
+
+def _transform_eri_nearest_loop(basis, eri_R, lattice=None):
+    """transform_eri_nearest as the plain loop over every cell R, one
+    einsum each: the check of the batched version."""
+    spin, ncells, nlo, neo = basis.shape
+    add = _add_table(lattice, ncells, basis.device)
+    P1 = torch.einsum("sCpi, sCqj -> sCpqij", basis, basis)
+    out = []
+    for s1, s2 in _spin_pairs(spin):
+        acc = torch.zeros((neo,) * 4, dtype=basis.dtype, device=basis.device)
+        for R in range(ncells):
+            half = torch.einsum("Cpqij, pqrs -> Crsij", P1[s1], eri_R[R])
+            acc += torch.einsum("Crsij, Crskl -> ijkl", half,
+                                P1[s2][add[:, R]])
+        out.append(acc)
+    return torch.stack(out)
+
+
+def transform_eri_nearest(basis, eri_R, lattice=None, max_bytes=2 ** 28):
+    """Interacting-bath embedding transform of the 'nearest' H2 format
+    (blocks (0p 0q | Rr Rs) = eri_R[R], translation invariant):
+
+      H2_emb[ijkl] = sum_{C, R} B[C,p,i] B[C,q,j]
+                     B[C+R,r,k] B[C+R,s,l] eri_R[R,p,q,r,s].
+
+    basis: (spin, ncells, nlo, neo) tensor; eri_R: (ncells, nlo^4) tensor
+    on its device.  Only the cells R whose block is non-zero are visited
+    (one host read finds them): the pair products of cell C + R are
+    gathered through the lattice's cell-addition table and contracted in
+    one einsum per group of R, the group sized so that the gathered
+    operand stays under max_bytes.  Returns (spin_pair, neo^4) in the
+    order [aa, bb, ab].
+
+    lattice: required for multi-dimensional cell meshes; 1D-cyclic
+    addition is assumed without it."""
+    spin, ncells, nlo, neo = basis.shape
+    add = _add_table(lattice, ncells, basis.device)
+    nz = torch.nonzero(torch.amax(torch.abs(eri_R), dim=(1, 2, 3, 4)) > 0.0
+                       )[:, 0]
+    # P1[s][C, p, q, i, j] = B[s,C,p,i] B[s,C,q,j]
+    P1 = torch.einsum("sCpi, sCqj -> sCpqij", basis, basis)
+    group = max(1, int(max_bytes // (8 * ncells * (nlo * neo) ** 2)))
+    out = torch.zeros((len(_spin_pairs(spin)),) + (neo,) * 4,
+                      dtype=basis.dtype, device=basis.device)
+    for Rs in torch.split(nz, group):
+        cells = add[:, Rs]                                  # (C, nR): C + R
+        for m, (s1, s2) in enumerate(_spin_pairs(spin)):
+            half = torch.einsum("Cpqij, Rpqrs -> CRrsij", P1[s1], eri_R[Rs])
+            out[m] += torch.einsum("CRrsij, CRrskl -> ijkl", half,
+                                   P1[s2][cells])
+    return out
+
+
+def transform_eri_full(basis, eri_F, lattice=None):
+    """Interacting-bath embedding transform of the 'full' H2 format
+    (eri_F[R1, R2, R3] = (0p R1q | R2r R3s), translation invariant):
+
+      H2_emb[ijkl] = sum_{C, R1, R2, R3} B[C,p,i] B[C+R1,q,j]
+                     B[C+R2,r,k] B[C+R3,s,l] eri_F[R1,R2,R3,p,q,r,s].
+
+    One einsum per non-zero (R1, R2, R3) block.  lattice: required for
+    multi-dimensional cell meshes (see transform_eri_nearest)."""
+    spin, ncells, nlo, neo = basis.shape
+    add = _add_table(lattice, ncells, basis.device)
+    nz = torch.nonzero(torch.amax(torch.abs(eri_F), dim=(3, 4, 5, 6)) > 0.0
+                       ).tolist()
+    out = []
+    for s1, s2 in _spin_pairs(spin):
+        acc = torch.zeros((neo,) * 4, dtype=basis.dtype, device=basis.device)
+        for R1, R2, R3 in nz:
+            left = torch.einsum("Cpi, Cqj, pqrs -> Cijrs", basis[s1],
+                                basis[s1][add[:, R1]], eri_F[R1, R2, R3])
+            acc += torch.einsum("Cijrs, Crk, Csl -> ijkl", left,
+                                basis[s2][add[:, R2]], basis[s2][add[:, R3]])
+        out.append(acc)
+    return torch.stack(out)
+
+
+def transform_eri_spin_local(basis, eri_S):
+    """Interacting-bath embedding transform of the 'spin local' H2 format
+    (per-channel local ERIs (aa, bb, ab), same cell only):
+
+      H2_emb[m][ijkl] = sum_C B[s1,C,p,i] B[s1,C,q,j]
+                        B[s2,C,r,k] B[s2,C,s,l] eri_S[m,p,q,r,s]."""
+    spin = basis.shape[0]
+    out = []
+    for m, (s1, s2) in enumerate(_spin_pairs(spin)):
+        g = eri_S[min(m, eri_S.shape[0] - 1)]
+        left = torch.einsum("pqrs, Cpi, Cqj -> Cijrs", g, basis[s1], basis[s1])
+        out.append(torch.einsum("Cijrs, Crk, Csl -> ijkl", left, basis[s2],
+                                basis[s2]))
+    return torch.stack(out)
 
 
 def unit2emb(H2_unit, neo):
@@ -203,8 +316,6 @@ def _get_emb_basis_svd(lattice, rdm1, **kwargs):
     ncells = lattice.ncells
     nlo = lattice.nscsites
     imp_idx_bath = val_idx if valence_bath else imp_idx
-    log.eassert(len(imp_idx_bath) == 0 or max(imp_idx_bath) < nlo,
-                "bath columns outside the reference cell are not ported")
     imp_set = set(imp_idx)
     bath_set = set(imp_idx_bath)
     env_idx = [i for i in range(ncells * nlo) if i not in bath_set]
@@ -215,9 +326,15 @@ def _get_emb_basis_svd(lattice, rdm1, **kwargs):
         rdm1 = rdm1[None]
     spin = rdm1.shape[0]
     dev = rdm1.device
-    env_t = torch.as_tensor(env_idx, device=dev)
-    bath_t = torch.as_tensor(imp_idx_bath, device=dev)
-    rdm1_env_imp = rdm1.reshape(spin, ncells * nlo, nlo)[:, env_t][:, :, bath_t]
+    env_t = torch.as_tensor(env_idx, dtype=torch.long, device=dev)
+    bath_t = torch.as_tensor(imp_idx_bath, dtype=torch.long, device=dev)
+    if len(imp_idx_bath) > 0 and max(imp_idx_bath) >= nlo:
+        # bath columns outside the reference cell: the full density matrix
+        big = as_f64(lattice.expand(rdm1.cpu().numpy()), dev)
+        rdm1_env_imp = big[:, env_t][:, :, bath_t]
+    else:
+        rdm1_env_imp = rdm1.reshape(spin, ncells * nlo,
+                                    nlo)[:, env_t][:, :, bath_t]
 
     nbath_cols = len(imp_idx_bath)
     u, sigma = _bath_vectors(rdm1_env_imp)
@@ -225,8 +342,9 @@ def _get_emb_basis_svd(lattice, rdm1, **kwargs):
 
     basis = torch.zeros((spin, ncells * nlo, nimp + nbath_cols),
                         dtype=rdm1.dtype, device=dev)
-    imp_t = torch.as_tensor(imp_idx, device=dev)
-    virt_t = torch.as_tensor(np.nonzero(virt_mask)[0], device=dev)
+    imp_t = torch.as_tensor(imp_idx, dtype=torch.long, device=dev)
+    virt_t = torch.as_tensor(np.nonzero(virt_mask)[0], dtype=torch.long,
+                             device=dev)
     nbath_final = nbath_cols
     for s in range(spin):
         if nbath is None:
@@ -305,22 +423,39 @@ def _emb_H2(lattice, basis, vcor, int_bath=True, **kwargs):
         if eri_imp.ndim == 5:     # spin-blocked (aa, bb, ab) unit-cell ERI
             return unit2emb(eri_imp, neo)
         return unit2emb(eri_imp[None].expand((npair,) + eri_imp.shape), neo)
+    LatH2 = as_f64(lattice.getH2(kspace=False), dev)
+    nsc = lattice.nscsites
     if lattice.H2_format == "local":
-        LatH2 = as_f64(lattice.getH2(kspace=False), dev)
         if int_bath:
             return transform_eri_local(basis, LatH2)
-        return unit2emb(LatH2[None].expand((npair,) + LatH2.shape), neo)
-    raise NotImplementedError(
-        "embedding H2: the %r format is not ported ('nearest', 'full' and "
-        "'spin local' come with the rest of the model-lattice slice, 'aft' "
-        "with the GDF/AFT slice)" % lattice.H2_format)
+        unit = LatH2[None].expand((npair,) + LatH2.shape)
+    elif lattice.H2_format == "nearest":
+        if int_bath:
+            return transform_eri_nearest(basis, LatH2, lattice=lattice)
+        unit = LatH2[0][None].expand((npair,) + (nsc,) * 4)
+    elif lattice.H2_format == "full":
+        if int_bath:
+            return transform_eri_full(basis, LatH2, lattice=lattice)
+        unit = LatH2[0, 0, 0][None].expand((npair,) + (nsc,) * 4)
+    elif lattice.H2_format == "spin local":
+        if int_bath:
+            return transform_eri_spin_local(basis, LatH2)
+        unit = LatH2[:npair]
+    elif lattice.H2_format == "aft":
+        raise NotImplementedError(
+            "embedding H2: the 'aft' format is not ported yet: it belongs "
+            "to the GDF/AFT ab initio slice (Slice 3)")
+    else:
+        raise ValueError("unknown H2 format %s" % lattice.H2_format)
+    return unit2emb(unit, neo)
 
 
 def _emb_H1(lattice, basis, vcor, H2_emb, int_bath=True, add_vcor=False,
             **kwargs):
     if getattr(lattice, "xc_dc", None) is not None:
         raise NotImplementedError(
-            "embedding H1: the DFT double counting (xc_dc) is not ported")
+            "embedding H1: the DFT double counting (xc_dc) is not ported "
+            "yet: it belongs to the DFT slice (Slice 5)")
     spin = basis.shape[0]
     basis_k = lattice.R2k_basis(basis)
     hcore_emb = transform_h1(lattice.getH1(kspace=True), basis_k)
@@ -364,3 +499,222 @@ def _emb_H1(lattice, basis, vcor, H2_emb, int_bath=True, add_vcor=False,
             if not kwargs.get("fitting", False):
                 H1[s] -= transform_imp(basis[s], vmat[s])
     return H1, ovlp_emb
+
+
+# ----------------------------------------------------------------------
+# global density matrices and charge self-consistency
+# ----------------------------------------------------------------------
+
+def _basis_tensor(basis, lattice):
+    """basis as a float64 tensor: where it lies when it is a tensor, on
+    the lattice's device otherwise."""
+    if isinstance(basis, torch.Tensor):
+        return basis.to(torch.float64)
+    return as_f64(basis, lattice.device)
+
+
+def get_rho_glob_R(basis, lattice, rho_emb):
+    """Global lattice density matrix from the embedded rdm1 by democratic
+    partitioning over translated impurities:
+
+      rho_glob[0p, Rq] = 1/2 (B_0 rho B_R^T + B_{-R} rho B_0^T)_pq
+
+    basis: (spin, ncells, nlo, neo); rho_emb: (spin, neo, neo).  Contracted
+    on the basis' device; returns the host stripe (spin, ncells, nlo, nlo).
+    The fragment translation uses the lattice's cell-index algebra."""
+    b = _basis_tensor(basis, lattice)
+    r = as_f64(rho_emb, b.device)
+    if r.ndim == 2:
+        r = r[None]
+    neg = torch.as_tensor(np.asarray(lattice._neg_map), dtype=torch.long,
+                          device=b.device)
+    row = torch.einsum("spi, sij, sRqj -> sRqp", b[:, 0], r, b)
+    col = torch.einsum("sRpi, sij, sqj -> sRqp", b[:, neg], r, b[:, 0])
+    return (0.5 * (row + col)).cpu().numpy()
+
+
+def get_veff_from_rdm1_emb(lattice, rdm1_emb, basis):
+    """Lattice veff in the LO basis rebuilt from the embedded rdm1 through
+    the democratic global density: the charge-self-consistency (DMET-CSC)
+    update, on the device of the lattice's Cholesky factors.
+
+    Returns host (veff_stripe (spin, ncells, nlo, nlo), rho_glob_stripe).
+    Requires the 'cholesky' H2 format (ab initio lattices)."""
+    log.eassert(lattice.H2_format == "cholesky",
+                "veff rebuild implemented for the cholesky H2 format")
+    rho_glob = get_rho_glob_R(basis, lattice, rdm1_emb)
+    spin = rho_glob.shape[0]
+    L = lattice.getH2()
+    rho_full = as_f64(lattice.expand(rho_glob), L.device)
+    if spin == 1:
+        # restricted convention: rho is the per-spin density
+        dm_tot = rho_full[0] * 2.0
+        w = torch.einsum("xpq, qp -> x", L, dm_tot)
+        vj = torch.einsum("x, xpq -> pq", w, L)
+        vk = torch.einsum("xpr, rs, xsq -> pq", L, dm_tot, L)
+        veff_full = (vj - 0.5 * vk)[None]
+    else:
+        w = torch.einsum("xpq, sqp -> x", L, rho_full)
+        vj = torch.einsum("x, xpq -> pq", w, L)
+        vk = torch.einsum("xpr, srt, xtq -> spq", L, rho_full, L)
+        veff_full = vj[None] - vk
+    veff_stripe = np.asarray(lattice.extract_stripe(veff_full.cpu().numpy()))
+    return veff_stripe, rho_glob
+
+
+def update_lattice_csc(lattice, rdm1_emb, basis):
+    """One charge-self-consistency step: fock <- hcore + veff(rho_glob).
+    Updates the lattice in place and returns (max fock change, veff
+    stripe); the veff can be fed to the DMET energy functional
+    (get_H_dmet(veff=...))."""
+    veff_stripe, rho_glob = get_veff_from_rdm1_emb(lattice, rdm1_emb, basis)
+    spin = veff_stripe.shape[0]
+    hcore = np.asarray(lattice.hcore_lo_R)
+    if hcore.ndim == 3:
+        hcore = hcore[None] if spin == 1 else np.asarray([hcore, hcore])
+    fock_new = hcore[:spin] + veff_stripe
+    if spin == 1:
+        fock_new = fock_new[0]
+    dfock = float(np.max(np.abs(fock_new - np.asarray(lattice.fock_lo_R))))
+    lattice.fock_lo_R = fock_new
+    lattice.fock_lo_k = lattice.R2k(fock_new)
+    lattice.rdm1_lo_R = rho_glob * (2.0 if spin == 1 else 1.0)
+    lattice.rdm1_lo_k = lattice.R2k(lattice.rdm1_lo_R)
+    return dfock, veff_stripe
+
+
+def get_E1_from_glob(lattice, rdm1_emb, basis):
+    """Fragment 1-body energy from the democratic global rdm:
+    E1 = sum_R tr(h(R) rho_glob(R)) per cell (restricted: rho_glob is
+    per-spin, factor 2)."""
+    rho_glob = get_rho_glob_R(basis, lattice, rdm1_emb)
+    spin = rho_glob.shape[0]
+    h = np.asarray(lattice.getH1(kspace=False))
+    if h.ndim == 3:
+        h = h[None] if spin == 1 else np.asarray([h, h])
+    E1 = np.einsum("sRpq, sRpq ->", h[:spin], rho_glob)
+    return float(E1) * (2.0 if spin == 1 else 1.0)
+
+
+def get_rdm1_idem(rho_glob_R, nelec_tot, kmesh, device=torch.device("cuda")):
+    """Project the (non-idempotent) democratic global rdm onto the nearest
+    idempotent density with the same electron count: the pDMET step.
+
+    rho_glob_R: (spin, ncells, nlo, nlo) stripe, per-spin convention for
+    spin == 1 (nelec_tot then counts PER-SPIN electrons).  Diagonalizes in
+    k space on `device` (translation invariance) and refills by aufbau on
+    the host.  Returns the idempotent host stripe."""
+    from libdmet_preview_tpu_torch.ops import fourier, mfd, zlinalg
+    rho_glob_R = np.asarray(rho_glob_R)
+    spin = rho_glob_R.shape[0]
+    if np.isscalar(nelec_tot):
+        nelec_tot = [nelec_tot] * spin
+    kmesh = tuple(int(x) for x in kmesh)
+    r_re, r_im = fourier.R2k(rho_glob_R, kmesh)
+    ew2, V = zlinalg.zeigh(as_f64(r_re, device), as_f64(r_im, device))
+    ew2 = ew2.cpu().numpy()
+    # occupy the LARGEST natural occupations (doubled spectrum: 2x count)
+    occ2 = np.asarray([mfd.assignocc(-ew2[s], int(round(2 * nelec_tot[s])),
+                                     np.inf, 0.0)[0] for s in range(spin)])
+    rho_re, rho_im = zlinalg.zfunc_from_eig(V, as_f64(occ2, device))
+    return fourier.k2R((rho_re.cpu().numpy(), rho_im.cpu().numpy()), kmesh)
+
+
+def add_bath(lattice, basis, ew, ev, nocc, nfrac, tol_bath=1e-6):
+    """Enlarge the embedding basis with bath orbitals built from the
+    nfrac*2 mean-field levels around the Fermi level: the real span of the
+    frontier Bloch orbitals, orthogonalized against the current basis
+    (host NumPy: a handful of vectors, Gram-Schmidt one by one).
+
+    basis: (spin, ncells, nlo, neo) or (ncells, nlo, neo), tensor or array;
+    ew: (nk, n) per-k mo energies (physical, undoubled);
+    ev: per-k mo coefficients, complex (nk, n, n) or a (re, im) pair;
+    nocc: total occupied count over the lattice; nfrac: half-window size.
+    Returns the enlarged basis (a tensor on the input's device for a
+    tensor, else an array) with <= 2*nfrac extra orthonormal columns
+    (vectors already inside the embedding span are dropped)."""
+    from libdmet_preview_tpu_torch.ops.zlinalg import dft_tables
+    dev = basis.device if isinstance(basis, torch.Tensor) else None
+    basis = basis.cpu().numpy() if dev is not None else np.asarray(basis)
+    squeeze = basis.ndim == 3
+    if squeeze:
+        basis = basis[None]
+    spin, ncells, nlo, neo = basis.shape
+    ew = np.asarray(ew)
+    nk, n = ew.shape
+    if isinstance(ev, (tuple, list)):
+        ev = np.asarray(ev[0]) + 1j * np.asarray(ev[1])
+    else:
+        ev = np.asarray(ev)
+
+    # frontier window on the global spectrum
+    idx = np.argsort(ew, axis=None, kind="mergesort")
+    sel = idx[max(nocc - nfrac, 0):nocc + nfrac]
+    k_idx, m_idx = np.divmod(sel, n)
+    e_sel = ew.ravel()[sel]
+
+    # lattice-space Bloch vectors V[(R, p), i] = e^{+ik.R} v_p(k) / sqrt(nk)
+    cos_t, sin_t = dft_tables(tuple(int(x) for x in lattice.kmesh))
+    ph = (cos_t + 1j * sin_t) / np.sqrt(nk)          # [k, R]
+    V = np.empty((ncells * nlo, len(sel)), dtype=complex)
+    for i, (k, m) in enumerate(zip(k_idx, m_idx)):
+        V[:, i] = np.kron(ph[k], ev[k][:, m])
+
+    # real frontier subspace: spectral projector weighted to keep ordering
+    shift = e_sel.min() - 0.1
+    h = (V * (e_sel - shift)) @ V.conj().T
+    if np.abs(h.imag).max() > tol_bath:
+        log.warn("add_bath: projector has imaginary part %.2e "
+                 "(frontier window breaks time reversal)",
+                 np.abs(h.imag).max())
+    w, u = np.linalg.eigh(h.real)
+    u = u[:, w > tol_bath][:, -len(sel):]
+
+    out = []
+    for s in range(spin):
+        B = basis[s].reshape(ncells * nlo, neo)
+        for i in range(u.shape[1]):
+            v = u[:, i]
+            v = v - B @ (B.T @ v)
+            nv = np.linalg.norm(v)
+            if nv > tol_bath:
+                B = np.hstack([B, (v / nv)[:, None]])
+        out.append(B)
+    nmax = min(b.shape[1] for b in out)
+    basis_out = np.asarray([b[:, :nmax] for b in out]).reshape(
+        spin, ncells, nlo, nmax)
+    if squeeze:
+        basis_out = basis_out[0]
+    return basis_out if dev is None else as_f64(basis_out, dev)
+
+
+def get_rdm2_glob_R(basis, lattice, rdm2_emb):
+    """Global lattice rdm2 stripe from the embedded rdm2 by 4-anchor
+    democratic partitioning:
+
+      G[J,K,L]_{ijkl} = 1/4 sum_{anchor in (0,J,K,L)}
+          (B_{0-a} x B_{J-a} x B_{K-a} x B_{L-a}) . rdm2_emb
+
+    basis: (spin, ncells, nlo, neo) or (ncells, nlo, neo) (restricted /
+    one species); rdm2_emb: (neo,)*4 chemist.  Contracted on the basis'
+    device, one einsum per (J, K, L, anchor); returns the host array
+    (ncells, ncells, ncells, nlo, nlo, nlo, nlo)."""
+    b = _basis_tensor(basis, lattice)
+    if b.ndim == 4:
+        b = b[0]
+    ncells, nlo, neo = b.shape
+    r2 = as_f64(rdm2_emb, b.device)
+    sub = lattice.subtract
+    out = torch.zeros((ncells,) * 3 + (nlo,) * 4, dtype=b.dtype,
+                      device=b.device)
+    # the first index transform depends on the anchor alone
+    first = [torch.einsum("pqrs, ip -> iqrs", r2, b[sub(0, a)])
+             for a in range(ncells)]
+    for J in range(ncells):
+        for K in range(ncells):
+            for L in range(ncells):
+                for a in (0, J, K, L):
+                    out[J, K, L] += torch.einsum(
+                        "iqrs, jq, kr, ls -> ijkl", first[a], b[sub(J, a)],
+                        b[sub(K, a)], b[sub(L, a)])
+    return (0.25 * out).cpu().numpy()

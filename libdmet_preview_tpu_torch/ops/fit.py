@@ -2,7 +2,8 @@
 Correlation-potential fitting (PyTorch port of
 libdmet_preview_tpu/ops/fit.py: the vcor helpers, get_dV_dparam, the
 zero-T objective with its analytic gradient, the CG and LM engines,
-minimize_cg / minimize, FitVcorEmb and FitVcorTwoStep).
+minimize_cg / minimize, the active-space projectors, FitVcorEmb,
+FitVcorFull, FitVcorTwoStep and cvx_frac).
 
 FitVcorEmb minimizes || rho_mf(param) - rho_corr ||_F over the embedding
 space.  The objective -- assemble V_emb from the parameter vector,
@@ -19,8 +20,12 @@ host read per decision).  Every constant and every stopping rule of the
 JAX engines is kept, so both packages take the same path and land on the
 same parameters.
 
-The whole-lattice stage (FitVcorFull) needs the backward of the k-space
-Fermi density and is not ported: FitVcorTwoStep raises when MaxIter2 > 0.
+The whole-lattice stage (FitVcorFull) re-solves the lattice mean field at
+every evaluation: at finite beta with a local vcor the whole cost (lattice
+Fock + vcor, one global-mu Fermi density over the (spin x k) batch through
+zlinalg.zrho_fermi, embedding fold, masked residual) is one differentiable
+tensor function on the lattice's device, and its gradient comes from
+backward() through the Daleckii-Krein backward of zrho_fermi.
 """
 
 import copy
@@ -90,12 +95,21 @@ def make_vcor_trace_unchanged(v_new, v_old, idx_range=None):
 def get_dV_dparam(vcor, basis, basis_k=None, kmesh=None):
     """dV_emb/dparam, dense (nparam, spin, neo, neo) tensor on the basis'
     device.  basis: (spin, ncells, nlo, neo) R-space tensor."""
-    if not vcor.islocal():
-        raise NotImplementedError(
-            "get_dV_dparam: non-local vcors come with the rest of the "
-            "model-lattice slice")
-    grad = as_f64(vcor.gradient()[:, :basis.shape[0]], basis.device)
-    return torch.einsum("sRpi, Pspq, sRqj -> Psij", basis, grad, basis)
+    if vcor.islocal():
+        grad = as_f64(vcor.gradient()[:, :basis.shape[0]], basis.device)
+        return torch.einsum("sRpi, Pspq, sRqj -> Psij", basis, grad, basis)
+    # non-local: per-parameter translation-invariant stripes through k space
+    from libdmet_preview_tpu_torch.ops import fourier
+    spin = basis.shape[0]
+    gradR = vcor.gradient_R()[:, :spin]      # (P, spin, ncells, n, n)
+    g_re, g_im = fourier.R2k(gradR, tuple(int(x) for x in kmesh))
+    g = torch.complex(as_f64(g_re, basis.device), as_f64(g_im, basis.device))
+    if basis_k is None:
+        basis_k = fourier.R2k(basis, tuple(int(x) for x in kmesh))
+    b = torch.complex(basis_k[0], basis_k[1])            # (spin, nk, n, neo)
+    vb = torch.einsum("Pskpq, skqj -> Pskpj", g, b)
+    dV = torch.einsum("skpi, Pskpj -> Psij", b.conj(), vb)
+    return dV.real / gradR.shape[2]
 
 
 # ----------------------------------------------------------------------
@@ -122,7 +136,10 @@ def _fit_rho(param, embH1, dV, ovlp_chol_inv, fit_mask, nelec, thr_deg=1e-3):
     ew, ev = torch.linalg.eigh(Horth)
 
     ne = _nelec_column(nelec, ew.device)                        # (spin, 1)
-    mu = 0.5 * (torch.gather(ew, 1, ne - 1) + torch.gather(ew, 1, ne))
+    # a full space (ne == neo, a whole-lattice impurity) takes the top
+    # level for both, as the JAX package's clamped index does
+    top = torch.clamp(ne, max=ew.shape[-1] - 1)
+    mu = 0.5 * (torch.gather(ew, 1, ne - 1) + torch.gather(ew, 1, top))
     below = (ew < mu - thr_deg).to(ew.dtype)
     deg = (torch.abs(ew - mu) <= thr_deg).to(ew.dtype)
     ndeg = torch.sum(deg, dim=1, keepdim=True)
@@ -379,16 +396,22 @@ def _fit_cg_zero_t(p0, embH1, dV, Li, mask, target, ytol, gtol, nelec,
     return _cg_engine(fg, p0, max_iter, ytol, gtol)
 
 
-def _err_finite_t(p, embH1, dV, Li, mask, target, nelec2, beta, spin):
+def _err_finite_t(p, embH1, dV, Li, mask, target, nelec2, beta, spin,
+                  C_act=None, tgt_act=None):
     """The finite-T FitVcorEmb objective, differentiable in p through
-    zlinalg.rho_fermi_real."""
+    zlinalg.rho_fermi_real: the masked residual, or with C_act the
+    residual C^T rho1 C - tgt_act over the active embedding columns."""
     Heff = embH1 + torch.einsum("P, Psij -> sij", p, dV)
     Horth = Li @ Heff @ Li.transpose(-1, -2)
     errs = 0.0
     for s in range(spin):
         r_re, _ = _zl.rho_fermi_real(Horth[s], nelec2[s], beta)
-        rho1 = (Li[s].T @ r_re @ Li[s]) * mask[s]
-        errs = errs + torch.sum((rho1 - target[s]) ** 2)
+        rho1 = Li[s].T @ r_re @ Li[s]
+        if C_act is not None:
+            d = C_act[s].T @ rho1 @ C_act[s] - tgt_act[s]
+        else:
+            d = rho1 * mask[s] - target[s]
+        errs = errs + torch.sum(d ** 2)
     return torch.sqrt(errs / spin)
 
 
@@ -462,8 +485,8 @@ def minimize_cg(fun_grad, x0, max_iter=300, ytol=1e-7, gtol=1e-3,
 def minimize(fun_grad, x0, method="CG", max_iter=300, **kwargs):
     """Optimizer dispatcher over a host objective fun_grad(x) -> (f, grad):
     'CG' is minimize_cg; 'BFGS' / 'trust-ncg' map to scipy; 'SD' is plain
-    steepest descent.  The JAX package's 'AH' (Newton-CG with
-    Hessian-vector products) is still to port."""
+    steepest descent; 'AH' is the trust-region Newton-CG of
+    _minimize_ah."""
     method = method.upper()
     if method == "CG":
         x, f, _ = minimize_cg(fun_grad, x0, max_iter=max_iter, **kwargs)
@@ -489,9 +512,7 @@ def minimize(fun_grad, x0, method="CG", max_iter=300, **kwargs):
                            method=name, options=options, **extra)
         return np.asarray(res.x), float(res.fun)
     if method in ("AH", "NEWTON", "NEWTON-CG"):
-        raise NotImplementedError(
-            "minimize: the 'AH' Newton-CG minimizer comes with the rest of "
-            "the model-lattice slice")
+        return _minimize_ah(fun_grad, x0, max_iter, **kwargs)
     if method == "SD":
         x = np.array(x0, dtype=float)
         step = kwargs.get("step", 0.1)
@@ -509,6 +530,145 @@ def minimize(fun_grad, x0, method="CG", max_iter=300, **kwargs):
     raise ValueError("unknown method %s" % method)
 
 
+def _minimize_ah(fun_grad, x0, max_iter, hvp=None, trust_radius=0.5,
+                 ytol=1e-10, gtol=1e-6, **kwargs):
+    """Second-order minimizer: trust-region Newton steps with
+    Hessian-VECTOR products only (truncated Steihaug CG inside the
+    radius).  hvp(x, p) -> H p is used when given (for a torch objective,
+    torch.autograd.functional.jvp through its gradient, or a double
+    backward); otherwise forward differences on fun_grad."""
+    x = np.array(x0, dtype=float)
+    tr = trust_radius
+    f, g = fun_grad(x)
+    f = float(f)
+    for _ in range(max_iter):
+        gn = np.asarray(g)
+        if np.max(np.abs(gn)) < gtol:
+            break
+
+        if hvp is None:
+            def hv(p, _x=x, _g=gn):
+                eps = 1e-6 / max(np.linalg.norm(p), 1e-30)
+                g1 = np.asarray(fun_grad(_x + eps * p)[1])
+                return (g1 - _g) / eps
+        else:
+            def hv(p, _x=x):
+                return np.asarray(hvp(_x, p))
+
+        def to_boundary(d, p):
+            return d + (tr - np.linalg.norm(d)) \
+                / max(np.linalg.norm(p), 1e-30) * p
+
+        # truncated CG (Steihaug): solve H d = -g within the radius
+        d = np.zeros_like(x)
+        r = gn.copy()
+        p = -r
+        rs = float(r @ r)
+        for _ in range(min(len(x), 50)):
+            Hp = hv(p)
+            pHp = float(p @ Hp)
+            if pHp <= 1e-14 * float(p @ p):
+                d = to_boundary(d, p)       # negative curvature
+                break
+            alpha = rs / pHp
+            d_new = d + alpha * p
+            if np.linalg.norm(d_new) > tr:
+                d = to_boundary(d, p)
+                break
+            d = d_new
+            r = r + alpha * Hp
+            rs_new = float(r @ r)
+            if rs_new < 1e-18:
+                break
+            p = -r + (rs_new / rs) * p
+            rs = rs_new
+
+        f_new, g_new = fun_grad(x + d)
+        f_new = float(f_new)
+        pred = -float(gn @ d) - 0.5 * float(d @ hv(d))
+        rho = (f - f_new) / max(pred, 1e-30)
+        if f_new < f:
+            x = x + d
+            df = f - f_new
+            f, g = f_new, g_new
+            if rho > 0.75 and np.linalg.norm(d) > 0.8 * tr:
+                tr = min(tr * 2.0, 10.0)
+            if df < ytol:
+                break
+        else:
+            tr *= 0.25
+            if tr < 1e-10:
+                break
+    return x, float(f)
+
+
+# ----------------------------------------------------------------------
+# active-space projectors (host NumPy on the supercell LO density)
+# ----------------------------------------------------------------------
+
+def get_active_projector(act_idx, rdm1, tol=1e-9):
+    """Active-space projector from selected LOs: span of the occupied and
+    virtual components of the chosen columns,
+
+      P_occ = rho[:, act],  P_virt = (I - rho)[:, act],
+
+    each orthonormalized after dropping singular directions.
+
+    act_idx: LO indices; rdm1: (spin, nsites, nsites) real supercell LO
+    density in the PER-SPIN convention (restricted occupations <= 1, as
+    returned by mfd.HF).  Returns (P (spin, nsites, nact'), nocc (spin,))
+    with nocc the number of occupied-derived columns per spin."""
+    act_idx = np.asarray(act_idx, dtype=int)
+    rdm1 = np.asarray(rdm1)
+    if rdm1.ndim == 2:
+        rdm1 = rdm1[None]
+    nsites = rdm1.shape[-1]
+    Ps, nocc = [], []
+    for r in rdm1:
+        cols = []
+        for block in (r[:, act_idx], (np.eye(nsites) - r)[:, act_idx]):
+            ew, ev = np.linalg.eigh(block.T @ block)
+            X = block @ ev[:, ew > tol]
+            if X.shape[-1]:
+                # Lowdin orthonormalization
+                w, V = np.linalg.eigh(X.T @ X)
+                X = X @ (V / np.sqrt(w)) @ V.T
+            cols.append(X)
+        Ps.append(np.hstack(cols))
+        nocc.append(cols[0].shape[-1])
+    return np.asarray(Ps), np.asarray(nocc, dtype=int)
+
+
+def make_rdm1_P(fock, vcor_mat, P, nocc, project_back=True):
+    """Mean-field density of the ACTIVE-projected problem P^T (F + u) P.
+
+    fock: (spin, nsites, nsites); vcor_mat: (spin, nsites, nsites) or
+    None; P: (spin, nsites, nact); nocc: per-spin occupation counts.
+    Returns the PER-SPIN rdm1, projected back to the full LO space when
+    project_back."""
+    fock = np.asarray(fock)
+    if fock.ndim == 2:
+        fock = fock[None]
+    out = []
+    for s in range(fock.shape[0]):
+        F = fock[s]
+        if vcor_mat is not None:
+            F = F + np.asarray(vcor_mat)[s]
+        ew, ev = np.linalg.eigh(P[s].T @ F @ P[s])
+        C = ev[:, :int(nocc[s])]
+        r = C @ C.T
+        if project_back:
+            r = P[s] @ r @ P[s].T
+        out.append(r)
+    return np.asarray(out)
+
+
+def get_active_projector_full(P):
+    """Full-space projection operator P P^T per spin (orthonormal LOs)."""
+    P = np.asarray(P)
+    return np.einsum("spi, sqi -> spq", P, P)
+
+
 # ----------------------------------------------------------------------
 # the fit in the fixed embedding basis
 # ----------------------------------------------------------------------
@@ -522,12 +682,11 @@ def FitVcorEmb(rho, lattice, basis, vcor, beta, MaxIter=300, imp_fit=False,
     basis: (spin, ncells, nlo, neo) tensor.  method="CG" (default) runs
     the CG engine, method="LM" the Levenberg-Marquardt engine at finite
     beta (CG at beta = inf, as in the JAX package); any other method goes
-    through minimize.  Returns (vcor, err_begin, err_end)."""
-    if kwargs.get("P_act", None) is not None \
-            or kwargs.get("C_act", None) is not None:
-        raise NotImplementedError(
-            "FitVcorEmb: the active-space fit (P_act / C_act) comes with "
-            "the rest of the model-lattice slice")
+    through minimize.  P_act (spin, nsites, nact) restricts the vcor
+    response to an active subspace; C_act (spin, neo, nact) measures the
+    residual over active embedding columns (host-driven CG, through the
+    Fermi op at beta = 1e6 when beta = inf).
+    Returns (vcor, err_begin, err_end)."""
     dev = basis.device
     spin = basis.shape[0]
     neo = basis.shape[-1]
@@ -559,7 +718,18 @@ def FitVcorEmb(rho, lattice, basis, vcor, beta, MaxIter=300, imp_fit=False,
     # orthonormal LOs)
     Li = torch.linalg.inv(torch.linalg.cholesky(ovlp_emb))
 
-    dV = get_dV_dparam(vcor, basis, basis_k=basis_k, kmesh=lattice.kmesh)
+    P_act = kwargs.get("P_act", None)
+    if P_act is not None:
+        # restrict the vcor response to the active subspace: project the
+        # embedding basis by P P^T before building dV/dparam
+        P_full = as_f64(get_active_projector_full(P_act), dev)
+        if P_full.shape[0] == 1 and spin == 2:
+            P_full = P_full.expand(2, -1, -1)
+        bP = (P_full @ basis.reshape(spin, -1, neo)).reshape(basis.shape)
+        dV = get_dV_dparam(vcor, bP, basis_k=lattice.R2k_basis(bP),
+                           kmesh=lattice.kmesh)
+    else:
+        dV = get_dV_dparam(vcor, basis, basis_k=basis_k, kmesh=lattice.kmesh)
 
     # fit index mask (imp_fit / det options)
     if imp_fit:
@@ -601,11 +771,28 @@ def FitVcorEmb(rho, lattice, basis, vcor, beta, MaxIter=300, imp_fit=False,
     nelec_t = _nelec_column(nelec, dev)
     nelec2 = tuple(2 * int(x) for x in nelec)  # doubled spectrum
 
+    C_act = kwargs.get("C_act", None)
+    tgt_act = None
+    if C_act is not None:
+        # active-space residual: || C^T (rho1 - rho) C || over the active
+        # embedding columns.  The closed-form zero-T gradient has no
+        # projected-residual variant; a large effective beta through the
+        # degenerate-safe Fermi op is exact for any gapped embedding
+        # spectrum
+        if beta == np.inf:
+            beta = 1e6
+        C_act = as_f64(C_act, dev)
+        if C_act.ndim == 2:
+            C_act = C_act[None]
+        if C_act.shape[0] == 1 and spin == 2:
+            C_act = C_act.expand(2, -1, -1)
+        tgt_act = C_act.transpose(-1, -2) @ rho @ C_act
+
     if beta < np.inf:
         # finite temperature: differentiate straight through the
         # degenerate-safe Fermi-density op
         fg_dev = _value_and_grad(lambda p: _err_finite_t(
-            p, *args, nelec2, float(beta), spin))
+            p, *args, nelec2, float(beta), spin, C_act, tgt_act))
     else:
         def fg_dev(p):
             return _fit_err_grad(p, *args, nelec=nelec_t, thr_deg=thr_deg)
@@ -621,7 +808,14 @@ def FitVcorEmb(rho, lattice, basis, vcor, beta, MaxIter=300, imp_fit=False,
     method = kwargs.get("method", "CG").upper()
     ytol = kwargs.get("ytol", 1e-7)
     gtol = kwargs.get("gtol", 1e-3)
-    if method in ("CG", "LM"):
+    if method in ("CG", "LM") and C_act is not None:
+        # the device engines bake in the mask residual; active-space
+        # residuals go through the host-driven CG
+        x, err_end, gnorm = minimize_cg(fun_grad, vcor.param,
+                                        max_iter=MaxIter, ytol=ytol,
+                                        gtol=gtol)
+        x, err_end, gnorm = np.asarray(x), float(err_end), float(gnorm)
+    elif method in ("CG", "LM"):
         p0 = as_f64(vcor.param, dev)
         if beta < np.inf and method == "LM":
             x, err_end, gnorm = _fit_lm_finite_t(
@@ -670,20 +864,175 @@ def _test_grad(param0, fun_grad, dx=1e-5):
     return g_ana, g_num
 
 
+def full_fit_objective(rho, lattice, basis, vcor, beta, filling,
+                       imp_fit=False):
+    """The finite-T whole-lattice objective of FitVcorFull for a local
+    vcor, as a host function p -> (err, grad): lattice Fock + vcor(p), one
+    global-mu Fermi density over the (spin x k) batch through
+    zlinalg.zrho_fermi, embedding fold, masked residual; the gradient is
+    one backward() through the op's Daleckii-Krein backward.  All tensor
+    work runs on the basis' device."""
+    from libdmet_preview_tpu_torch.ops import mfd
+    from libdmet_preview_tpu_torch.utils.misc import add_spin_dim
+    dev = basis.device
+    spin = basis.shape[0]
+    basis_k = lattice.R2k_basis(basis)
+    mask, rho_target = _full_fit_target(rho, lattice, basis, imp_fit)
+    Fock_k = lattice.getFock(kspace=True)
+    f_re, f_im = np.asarray(Fock_k[0]), np.asarray(Fock_k[1])
+    if f_re.ndim == 3:
+        f_re, f_im = f_re[None], f_im[None]
+    f_re = as_f64(add_spin_dim(f_re, spin, non_spin_dim=3), dev)
+    f_im = as_f64(add_spin_dim(f_im, spin, non_spin_dim=3), dev)
+    nk, nlo = f_re.shape[1], f_re.shape[-1]
+    # single mu across spin channels and k (mfd.HF's convention for a
+    # scalar filling); electron count on the DOUBLED spectrum
+    nelec2 = mfd.check_nelec(spin * nk * 2 * nlo * float(filling))[0]
+    grad_tab = as_f64(np.asarray(vcor.gradient())[:, :spin], dev)
+    fi_flat = f_im.reshape(spin * nk, nlo, nlo)
+
+    def err_full(p):
+        F_re = f_re + torch.einsum("P, Psij -> sij", p, grad_tab)[:, None]
+        r_re, r_im, _ = _zl.zrho_fermi(
+            F_re.reshape(spin * nk, nlo, nlo), fi_flat, nelec2, float(beta))
+        remb = embham.transform_h1(
+            (r_re.reshape(spin, nk, nlo, nlo),
+             r_im.reshape(spin, nk, nlo, nlo)), basis_k)
+        return torch.linalg.norm(remb * mask - rho_target) \
+            / np.sqrt(1.0 * spin)
+
+    fg_dev = _value_and_grad(err_full)
+
+    def fun_grad(p):
+        FitVcorFull.n_eval += 1
+        e, g = fg_dev(as_f64(p, dev))
+        return float(e), g.cpu().numpy()
+
+    return fun_grad
+
+
+def _full_fit_target(rho, lattice, basis, imp_fit):
+    """(mask, masked target) of the whole-lattice fit on the basis'
+    device; imp_fit restricts the residual to the impurity block."""
+    spin, neo = basis.shape[0], basis.shape[-1]
+    rho_target = as_f64(rho, basis.device)
+    mask = torch.ones((spin, neo, neo), dtype=torch.float64,
+                      device=basis.device)
+    if imp_fit:
+        mask[:] = 0.0
+        mask[:, :lattice.nimp, :lattice.nimp] = 1.0
+        rho_target = rho_target * mask
+    return mask, rho_target
+
+
+def FitVcorFull(rho, lattice, basis, vcor, beta, filling, MaxIter=20,
+                imp_fit=False, **kwargs):
+    """Whole-lattice fit stage: re-solve the lattice mean field at each
+    step and match the folded rdm1, on the basis' device.  imp_fit
+    restricts the residual to the impurity block.
+
+    At finite beta with a local vcor the objective is full_fit_objective,
+    minimized by minimize_cg and checked by scipy's CG / BFGS as in
+    FitVcorEmb; otherwise (zero T, non-local vcor) by Powell's
+    derivative-free method over the one-shot mean field.
+    FitVcorFull.n_eval counts the objective evaluations since the caller
+    last set it to 0.  Returns (vcor, err_begin, err_end)."""
+    from libdmet_preview_tpu_torch.ops import mfd
+
+    dev = basis.device
+    spin = basis.shape[0]
+    restricted = (spin == 1)
+
+    if beta < np.inf and vcor.islocal():
+        fun_grad = full_fit_objective(rho, lattice, basis, vcor, beta,
+                                      filling, imp_fit=imp_fit)
+        p0 = vcor.param.copy()
+        err_begin = fun_grad(p0)[0]
+        x, err_end, gnorm = minimize_cg(fun_grad, p0, max_iter=MaxIter,
+                                        ytol=kwargs.get("ytol", 1e-8),
+                                        gtol=kwargs.get("gtol", 1e-4))
+        if kwargs.get("CG_check", False) or kwargs.get("BFGS", False) \
+                or gnorm > 1e-3:
+            from scipy import optimize as opt
+            r = opt.minimize(lambda p: fun_grad(p)[0], x,
+                             jac=lambda p: fun_grad(p)[1],
+                             method="BFGS" if kwargs.get("BFGS") else "CG",
+                             options={"maxiter": MaxIter,
+                                      "gtol": max(gnorm * 0.1, 5e-5)})
+            if r.fun < err_end:
+                x, err_end = r.x, float(r.fun)
+        vcor.update(np.asarray(x))
+        return vcor, err_begin, float(err_end)
+
+    basis_k = lattice.R2k_basis(basis)
+    mask, rho_target = _full_fit_target(rho, lattice, basis, imp_fit)
+
+    # derivative-free path (zero T, or a non-local vcor): Powell over the
+    # one-shot mean field
+    def cost(p):
+        FitVcorFull.n_eval += 1
+        vcor.update(p)
+        _, _, _, res = mfd.HF(lattice, vcor, filling, restricted, beta=beta,
+                              ires=True)
+        rho1 = embham.foldRho_k(
+            tuple(as_f64(x, dev) for x in res["rho_k"]), basis_k) * mask
+        return float(torch.linalg.norm(rho1 - rho_target) / np.sqrt(spin))
+
+    from scipy import optimize as opt
+    p0 = vcor.param.copy()
+    err_begin = cost(p0)
+    res = opt.minimize(cost, p0, method="Powell",
+                       options={"maxiter": MaxIter, "xtol": 1e-7})
+    if res.fun <= err_begin:
+        vcor.update(res.x)
+        return vcor, err_begin, float(res.fun)
+    vcor.update(p0)
+    return vcor, err_begin, err_begin
+
+
+FitVcorFull.n_eval = 0
+
+
 def FitVcorTwoStep(rho, lattice, basis, vcor, beta, filling, MaxIter1=300,
                    MaxIter2=0, **kwargs):
-    """Two-step fit wrapper; only the embedding-space stage is ported."""
-    if MaxIter2 > 0:
-        raise NotImplementedError(
-            "FitVcorTwoStep: the whole-lattice stage (FitVcorFull, "
-            "MaxIter2 > 0) needs the backward of the k-space Fermi density "
-            "and comes with the rest of the model-lattice slice")
+    """Two-step fit wrapper: the embedding-space stage (MaxIter1), then
+    the whole-lattice stage (MaxIter2)."""
     vcor_new = copy.deepcopy(vcor)
     err_begin = err_end = None
     if MaxIter1 > 0:
         vcor_new, err_begin, err_end = FitVcorEmb(rho, lattice, basis,
                                                   vcor_new, beta,
                                                   MaxIter=MaxIter1, **kwargs)
+    if MaxIter2 > 0:
+        vcor_new, err_begin2, err_end = FitVcorFull(rho, lattice, basis,
+                                                    vcor_new, beta, filling,
+                                                    MaxIter=MaxIter2, **kwargs)
+        if err_begin is None:
+            err_begin = err_begin2
     log.result("residue (begin) = %s", err_begin)
     log.result("residue (end)   = %s", err_end)
     return vcor_new, err_end
+
+
+def cvx_frac(mo_coeff, rho_target, nelec, tol=1e-10):
+    """Convex fractional-occupation fit in closed form (host NumPy).
+
+    Find occupations 0 <= w <= 1 with sum(w) = nelec minimizing
+    || C diag(w) C^T - rho ||_F.  For orthonormal C the objective
+    separates and the optimum is the Euclidean projection of
+    d = diag(C^T rho C) onto the capped simplex: w = clip(d + lam, 0, 1)
+    with lam fixed by the trace, a scalar bisection."""
+    C = np.asarray(mo_coeff)
+    d = np.diag(C.T @ np.asarray(rho_target) @ C).copy()
+    assert 0.0 <= nelec <= d.size + 1e-9
+
+    lo, hi = -1.0 - d.max(), 1.0 - d.min() + 1.0
+    for _ in range(200):
+        mid = 0.5 * (lo + hi)
+        if float(np.clip(d + mid, 0.0, 1.0).sum()) < nelec:
+            lo = mid
+        else:
+            hi = mid
+        if hi - lo < tol:
+            break
+    return np.clip(d + 0.5 * (lo + hi), 0.0, 1.0)

@@ -1,7 +1,6 @@
 """
 Lattice mean field: batched k-point diagonalization + occupation assignment
-(PyTorch port of libdmet_preview_tpu/ops/mfd.py: check_nelec, assignocc,
-HF, _default_mu, _homo_lumo).
+(PyTorch port of libdmet_preview_tpu/ops/mfd.py).
 
 The per-k Hermitian eigenproblems are one batched complex eigh over
 (spin, k) on the lattice's device (zlinalg.zeigh).  The occupation logic
@@ -118,7 +117,11 @@ def HF(lattice, vcor, filling, restricted, mu0=None, beta=np.inf, ires=False,
         vmat = np.asarray(vcor.get())
         f_re = f_re + vmat[:spin, None, :, :]
     else:
-        raise NotImplementedError("HF: non-local vcor is not ported")
+        # non-local vcor: k-resolved Hermitian pair
+        v_re, v_im = vcor.get(kspace=True)
+        vmat = None
+        f_re = f_re + np.asarray(v_re)[:spin]
+        f_im = f_im + np.asarray(v_im)[:spin]
 
     # time-reversal reduction: H(-k) = H(k)* -> diagonalize only the
     # irreducible half mesh and mirror
@@ -202,6 +205,31 @@ def HF(lattice, vcor, filling, restricted, mu0=None, beta=np.inf, ires=False,
     return rhoT, mu, E, res
 
 
+def HF_scf(lattice, vcor, filling, restricted, mu0=None, beta=np.inf,
+           max_cycle=50, conv_tol=1e-10, ires=False, **kwargs):
+    """Self-consistent lattice HF for model Hamiltonians: alternate the
+    one-shot k diagonalization with the JK rebuild of the lattice Fock.
+
+    Requires a local H2 (update_Ham support).  Returns like HF()."""
+    log.eassert(lattice.H2_format == "local",
+                "HF_scf implemented for local lattice H2")
+    E_old = np.inf
+    out = None
+    for it in range(max_cycle):
+        out = HF(lattice, vcor, filling, restricted, mu0=mu0, beta=beta,
+                 ires=True, use_hcore=False, **kwargs)
+        rhoT, mu, E, res = out
+        spin = rhoT.shape[0]
+        lattice.update_Ham(rhoT * (2.0 if spin == 1 else 1.0))
+        if abs(E - E_old) < conv_tol:
+            break
+        E_old = E
+    log.info("HF_scf: converged in %d cycles, E = %.12f", it + 1, E)
+    if ires:
+        return out
+    return out[:3]
+
+
 def _default_mu(ew_sorted, nelec):
     if nelec <= 0:
         return ew_sorted[0]
@@ -215,3 +243,51 @@ def _homo_lumo(ew_sorted, mu):
     lumo_idx = min(np.searchsorted(ew_sorted, mu, side="left"),
                    len(ew_sorted) - 1)
     return ew_sorted[homo_idx], ew_sorted[lumo_idx]
+
+
+def GHF(lattice, vcor, filling, mu0=None, beta=np.inf, ires=False, **kwargs):
+    """Generalized HF over spin-orbitals: one complex eigh of the
+    (2nao x 2nao) blocks [[F_a + v_a, D], [D^T, F_b + v_b]] per k on the
+    lattice's device, occupations on the doubled spectrum.  vcor.get() is
+    (3, nao, nao): v_a, v_b and the off-diagonal block D.  res["coef"] are
+    the complex eigenvectors (1, nk, 2nao, 2nao)."""
+    device = lattice.device
+    if device is None:
+        raise ValueError("GHF: the lattice has no device (attach its "
+                         "Hamiltonian with set_Ham(..., device=...))")
+    Fock_k = lattice.getFock(kspace=True)
+    f_re, f_im = np.asarray(Fock_k[0]), np.asarray(Fock_k[1])
+    if f_re.ndim == 3:
+        f_re, f_im = f_re[None], f_im[None]
+    f_re = add_spin_dim(f_re, 2, non_spin_dim=3)
+    f_im = add_spin_dim(f_im, 2, non_spin_dim=3)
+    nao = lattice.nao
+    nkpts = f_re.shape[-3]
+    vmat = np.asarray(vcor.get()) if vcor is not None else np.zeros((3, nao, nao))
+    GF_re = np.zeros((1, nkpts, 2 * nao, 2 * nao))
+    GF_im = np.zeros_like(GF_re)
+    GF_re[0, :, :nao, :nao] = f_re[0] + vmat[0]
+    GF_im[0, :, :nao, :nao] = f_im[0]
+    GF_re[0, :, nao:, nao:] = f_re[1] + vmat[1]
+    GF_im[0, :, nao:, nao:] = f_im[1]
+    GF_re[0, :, :nao, nao:] = vmat[2]
+    GF_re[0, :, nao:, :nao] = vmat[2].T
+    ew2, V = zlinalg.zeigh(as_f64(GF_re, device), as_f64(GF_im, device))
+    ew2 = ew2.cpu().numpy()
+    nelec2 = check_nelec(ew2.size * filling)[0]
+    ew_sorted = np.sort(ew2, axis=None)
+    if mu0 is None:
+        mu0 = _default_mu(ew_sorted, nelec2)
+    ewocc2, mu, nerr = assignocc(ew2, nelec2, beta, mu0,
+                                 fix_mu=kwargs.get("fix_mu", False),
+                                 thr_deg=kwargs.get("tol_deg", 1e-6))
+    rho_re, rho_im = zlinalg.zfunc_from_eig(V, as_f64(ewocc2, device))
+    rho_re, rho_im = rho_re.cpu().numpy(), rho_im.cpu().numpy()
+    rhoT = np.asarray(lattice.k2R((rho_re[0], rho_im[0])))
+    E = float(np.sum(GF_re[0] * rho_re[0] + GF_im[0] * rho_im[0])) / nkpts
+    if ires:
+        res = {"e": ew2, "coef": V.cpu().numpy(),
+               "rho_k": (rho_re[0], rho_im[0]),
+               "mo_occ": ewocc2, "nerr": nerr}
+        return rhoT, mu, E, res
+    return rhoT, mu, E

@@ -105,24 +105,76 @@ def zfunc_from_eig(V, f2):
 
 
 # ----------------------------------------------------------------------
-# k-space Fermi density (forward only: the fused iteration does not
-# differentiate the lattice mean field)
+# k-space Fermi density with the Daleckii-Krein backward
 # ----------------------------------------------------------------------
+
+def _safe_inv(denom):
+    safe = torch.abs(denom) > 1e-300
+    return torch.where(
+        safe, 1.0 / torch.where(safe, denom, torch.ones_like(denom)),
+        torch.zeros_like(denom))
+
+
+class _ZRhoFermi(torch.autograd.Function):
+    """rho = f_beta(H - mu) of the Hermitian batch H = h_re + i h_im at a
+    fixed (optionally k-weighted) electron count, as one differentiable op.
+
+    The backward reuses the forward's complex eigendecomposition on the
+    SINGLE spectrum and is exact for degenerate spectra (k/-k pairs).  With
+    the cotangent Wc = w_re + i w_im and We = V^H Wc V,
+
+        G_k = V_k [K_k o We_k + diag(w_k f'_k) c] V_k^H,
+        c   = (w_mu - sum_k sum_i f'_ki Re We_kii) / sum_k w_k sum_i f'_ki,
+
+    and (gh_re, gh_im) = (Re G, Im G): the vector-Jacobian product of
+    (h_re, h_im) -> (rho_re, rho_im, mu) with h_re and h_im independent
+    real arrays.  The doubled embedding's factor 2 cancels between c's
+    numerator (each level once per pair) and its denominator."""
+
+    @staticmethod
+    def forward(ctx, h_re, h_im, nelec2, beta, weights):
+        ew, V = torch.linalg.eigh(torch.complex(h_re, h_im))
+        mu = _bisect_mu(ew, 0.5 * nelec2, beta, weights=weights)
+        occ = _fermi(ew, mu, beta)
+        rho = (V * occ[..., None, :].to(V.dtype)) @ V.mH
+        ctx.beta = beta
+        ctx.weights = weights
+        ctx.save_for_backward(ew, V, mu)
+        return rho.real.contiguous(), rho.imag.contiguous(), mu
+
+    @staticmethod
+    def backward(ctx, w_re, w_im, w_mu):
+        ew, V, mu = ctx.saved_tensors
+        beta, weights = ctx.beta, ctx.weights
+        f, K = _fermi_K(ew, mu, beta)
+        fp = -beta * f * (1.0 - f)
+        wfp = fp if weights is None else weights[..., None] * fp
+        We = V.mH @ torch.complex(w_re, w_im) @ V
+        trace_term = torch.sum(
+            torch.diagonal(We, dim1=-2, dim2=-1).real * fp)
+        diag_coeff = (w_mu - trace_term) * _safe_inv(torch.sum(wfp))
+        Mct = K * We + torch.diag_embed(wfp * diag_coeff)
+        G = V @ Mct @ V.mH
+        return G.real, G.imag, None, None, None
+
 
 def zrho_fermi_w(h_re, h_im, nelec2, beta, weights):
     """Grand-canonical density rho = f_beta(H - mu) of the Hermitian batch
     H = h_re + i h_im (..., n, n) at fixed electron number, with per-batch
     weights in the count N = sum_k w_k tr f(H_k) (time-reversal reduced
-    meshes: w = 2 for paired k, 1 for self-paired).
+    meshes: w = 2 for paired k, 1 for self-paired).  Differentiable in
+    h_re and h_im; the weights enter the mu constraint only.
 
     nelec2 is the DOUBLED-spectrum count of the JAX package's zrho_fermi_w.
     Returns (rho_re, rho_im, mu)."""
-    h = torch.complex(h_re, h_im)
-    ew, V = torch.linalg.eigh(h)
-    mu = _bisect_mu(ew, 0.5 * nelec2, beta, weights=weights)
-    occ = _fermi(ew, mu, beta)
-    rho = (V * occ[..., None, :].to(V.dtype)) @ V.conj().transpose(-1, -2)
-    return rho.real, rho.imag, mu
+    return _ZRhoFermi.apply(h_re, h_im, float(nelec2), float(beta), weights)
+
+
+def zrho_fermi(h_re, h_im, nelec2, beta):
+    """zrho_fermi_w with unit weights: rho = f_beta(H - mu) at the
+    doubled-spectrum count nelec2, batched over leading axes, with the
+    degenerate-safe derivative.  Returns (rho_re, rho_im, mu)."""
+    return _ZRhoFermi.apply(h_re, h_im, float(nelec2), float(beta), None)
 
 
 # ----------------------------------------------------------------------
@@ -157,11 +209,7 @@ class _RhoFermiReal(torch.autograd.Function):
         fp = -beta * f * (1.0 - f)
         # the 2x doubled-count factors cancel between the dN = 0 numerator
         # and denominator, so the single-spectrum sums give the same dmu
-        denom = torch.sum(fp)
-        safe = torch.abs(denom) > 1e-300
-        inv_denom = torch.where(
-            safe, 1.0 / torch.where(safe, denom, torch.ones_like(denom)),
-            torch.zeros_like(denom))
+        inv_denom = _safe_inv(torch.sum(fp))
         W_eig = V.transpose(-1, -2) @ w_rho @ V
         trace_term = torch.sum(torch.diagonal(W_eig, dim1=-2, dim2=-1) * fp)
         diag_coeff = (w_mu - trace_term) * inv_denom

@@ -558,7 +558,7 @@ class FCI(object):
         if ghf:
             raise NotImplementedError(
                 "FCI(ghf=True): the generalized-spin-orbital solver comes "
-                "with the superconducting (GSO/BCS) slice")
+                "with the superconducting (GSO/BCS) slice (Slice 4)")
         self.restricted = restricted
         self.Sz = Sz
         self.ghf = ghf

@@ -151,7 +151,8 @@ def test_construct_imp_ham_model_matches_jax(kind, int_bath, use_hcore):
 @pytest.mark.parametrize("spin", [1, 2])
 def test_update_ham_fock_matches_jax(spin):
     """update_Ham from a seeded random density: Fock stripe and its
-    k-space pair 1e-12; the 'nearest' format raises in the port."""
+    k-space pair 1e-12; a format that update_Ham does not know fails its
+    check (the 'nearest' format is held in test_torch_models_extra.py)."""
     (Lat, _), (lat_t, _) = both_lattices("square")
     rng = np.random.RandomState(9)
     rdm1 = rng.rand(spin, Lat.ncells, 4, 4)
@@ -162,6 +163,6 @@ def test_update_ham_fock_matches_jax(spin):
     for a, b in zip(lat_t.fock_lo_k, Lat.fock_lo_k):
         assert np.abs(a - np.asarray(b)).max() < 1e-12
     assert np.abs(lat_t.fock_lo_R - lat_t.hcore_lo_R).max() > 1e-2
-    lat_t.H2_format = "nearest"
-    with pytest.raises(NotImplementedError):
+    lat_t.H2_format = "full"
+    with pytest.raises(AssertionError, match="local and nearest"):
         lat_t.update_Ham(rdm1)

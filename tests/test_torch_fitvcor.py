@@ -171,10 +171,20 @@ def test_vcor_helpers_exact():
 
 
 def test_unported_fit_branches_raise():
+    """The fit branches that used to raise (the whole-lattice stage of
+    FitVcorTwoStep, the C_act hook of FitVcorEmb) now run; what the fit
+    module still cannot do is a Bogoliubov non-local vcor, which raises
+    and names its slice."""
+    import copy
     from libdmet_preview_tpu_torch.ops import fit as tfit
+    from libdmet_preview_tpu_torch.ops.vcor import VcorNonLocal
     _, (lat_t, vcor_t), basis, target = workload("chain", np.inf)
     B, T = torch.as_tensor(basis), torch.as_tensor(target)
-    with pytest.raises(NotImplementedError):
-        tfit.FitVcorTwoStep(T, lat_t, B, vcor_t, np.inf, FILLING, MaxIter2=5)
-    with pytest.raises(NotImplementedError):
-        tfit.FitVcorEmb(T, lat_t, B, vcor_t, np.inf, C_act=np.eye(4))
+    v2, err2 = tfit.FitVcorTwoStep(T, lat_t, B, copy.deepcopy(vcor_t), np.inf,
+                                   FILLING, MaxIter1=20, MaxIter2=2)
+    assert np.isfinite(err2)
+    _, e0, e1 = tfit.FitVcorEmb(T, lat_t, B, copy.deepcopy(vcor_t), np.inf,
+                                MaxIter=20, C_act=np.eye(4))
+    assert np.isfinite(e0) and e1 <= e0
+    with pytest.raises(NotImplementedError, match="Slice 4"):
+        VcorNonLocal(True, True, lat_t)
