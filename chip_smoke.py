@@ -114,13 +114,46 @@ Phases, in order; any failure raises and the process exits non-zero:
          no call of a plain version on the card; the card against the CPU
          (1e-8).
 
+  9. coupled cluster and the k-resolved GDF path:
+     9a. CCSD on the ab initio embedding problem of phase 6 (neo = 60, 120
+         spin orbitals; run right after phase 6, before 8d (ii) updates
+         that lattice's Fock): ConstructImpHam (2 symmetric + 1 cross syrk
+         launches counted, no plain-version call on the card) ->
+         CCSD(restricted=False).run from the folded mean-field density ->
+         transformResults with the CC solver; run_dmet_ham reproduces E
+         (1e-8), tr(rdm1) = nelec (1e-8), rdm1 symmetric; amplitude and
+         adjoint iterations, the branch that ended the adjoint, stage
+         seconds, ms per residual and per adjoint matvec (CUDA events),
+         peak device memory, the idle share of a second, profiled
+         amplitude solve; one residual and one adjoint matvec at the
+         card's amplitudes against the CPU (1e-10 relative);
+     9b. run_dmet with DmetConfig(solver="CCSD") on SquareLattice(40, 40,
+         2, 2), U=2, interacting bath, three iterations: E/site of each
+         within 1e-3 of the FCI loop's same iteration in 7a; the first two
+         iterations on the card against the CPU (1e-8);
+     9c. the GDF path at the ab initio width: 300 random symmetric
+         real-space factors on 8 cells x 30 LOs, decaying with the cell
+         distance, and all 8 translations of each (2400 Cholesky
+         vectors); their k-resolved factors analytically (a double
+         Fourier transform, 300 per momentum transfer);
+         get_emb_eri_gdf (with and without tr_symm) against
+         get_emb_eri_chol of the same integrals for a random real (1, 8,
+         30, 60) basis (1e-10 relative); get_jk_from_gdf against J, K
+         from einsums over the Cholesky vectors (1e-10); both on the card
+         against the CPU (1e-10); write_cderi -> read_cderi of the
+         factors bit-identical; on a 6-cell, 4-orbital dense case
+         make_gdf_factors' M_q = F F^H against the analytic factors'
+         (1e-10).
+
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}.
 """
 
 import contextlib
 import json
+import os
 import subprocess
+import tempfile
 import time
 
 import numpy as np
@@ -429,7 +462,10 @@ class _VcorFixed:
         return g
 
 
-def make_bench_workload(seed=0):
+def make_bench_workload(seed=0, naux=NAUX):
+    """bench.py's lattice, vcor, target placeholder and DF factors; a
+    smaller `naux` gives the same lattice and vcor (the factors are drawn
+    last) for work that does not need the ERI."""
     from libdmet_preview_tpu_torch.models.lattice import ChainLattice
     rng = np.random.RandomState(seed)
     h_R = rng.randn(NK, NLO, NLO) * 0.2
@@ -442,7 +478,7 @@ def make_bench_workload(seed=0):
     vmat = (vmat + vmat.transpose(0, 2, 1)) / 2
     rho_t = np.tile(np.eye(NEO)[None] * FILLING, (1, 1, 1))
     nsites = NK * NLO
-    L = rng.randn(NAUX, nsites, nsites) * 0.02
+    L = rng.randn(naux, nsites, nsites) * 0.02
     L = 0.5 * (L + L.transpose(0, 2, 1))
     return Lat, _VcorFixed(vmat), rho_t, L
 
@@ -826,9 +862,30 @@ def _quiet():
         log.verbose = level
 
 
+@contextlib.contextmanager
+def _counted_plain_calls():
+    """Count the calls of the syrk's plain version on CUDA tensors inside
+    the block; yields {"cuda": n}."""
+    from libdmet_preview_tpu_torch.ops import eri_kernels as ek
+    calls = {"cuda": 0}
+    plain = ek.syrk_df_plain
+
+    def counted_plain(F, F2=None):
+        if F.device.type == "cuda":
+            calls["cuda"] += 1
+        return plain(F, F2)
+
+    ek.syrk_df_plain = counted_plain
+    try:
+        yield calls
+    finally:
+        ek.syrk_df_plain = plain
+
+
 def run_hub2d(U, int_bath, device, max_iter=HUB2D["max_iter"],
-              size=HUB2D["size"], profile_iteration=False):
-    """run_dmet on the 2D Hubbard anchor on `device`; returns (result,
+              size=HUB2D["size"], profile_iteration=False, solver="FCI"):
+    """run_dmet on the 2D Hubbard anchor on `device`, with the FCI solver
+    or the one DmetConfig builds from the name `solver`; returns (result,
     stage seconds, counts, idle share of one profiled iteration or None).
     counts: FCI.run calls, sigma builds and CG steps of the whole run."""
     import libdmet_preview_tpu_torch.dmet.hubbard as dmet
@@ -844,16 +901,18 @@ def run_hub2d(U, int_bath, device, max_iter=HUB2D["max_iter"],
                     device=device)
         vcor = dmet.AFInitGuess(HUB2D["imp"], U, HUB2D["filling"])
         cfg = DmetConfig(filling=HUB2D["filling"], restricted=False,
-                         int_bath=int_bath, solver="FCI", solver_tol=1e-10,
+                         int_bath=int_bath, solver=solver, solver_tol=1e-10,
                          max_iter=n_iter)
-        return Lat, vcor, cfg, FCI(restricted=False, tol=1e-10,
-                                   device=device)
+        return Lat, vcor, cfg, (FCI(restricted=False, tol=1e-10,
+                                    device=device)
+                                if solver == "FCI" else None)
 
-    Lat, vcor, cfg, solver = prepare(max_iter)
+    Lat, vcor, cfg, fci = prepare(max_iter)
     _cg_engine.steps = 0
     with timer.recording() as sec:
-        res = run_dmet(Lat, vcor, cfg, solver=solver)
-    counts = {"FCI.run": solver.n_run, "sigma": solver.n_sigma,
+        res = run_dmet(Lat, vcor, cfg, solver=fci)
+    counts = {"FCI.run": getattr(fci, "n_run", 0),
+              "sigma": getattr(fci, "n_sigma", 0),
               "CG steps": _cg_engine.steps}
     idle = None
     if profile_iteration:
@@ -1120,24 +1179,13 @@ def phase_dmet_loop_cholesky(device, card):
     from libdmet_preview_tpu_torch.ops import eri_kernels as ek
     from libdmet_preview_tpu_torch.ops.fit import _cg_engine
     workload = make_chol_chain_workload()
-    plain_calls = {"cuda": 0}
-    plain = ek.syrk_df_plain
-
-    def counted_plain(F, F2=None):
-        if F.device.type == "cuda":
-            plain_calls["cuda"] += 1
-        return plain(F, F2)
-
     # the main path: counts start at 0 here
     _sync(device)
     ek.syrk_df.launches = 0
     ek.syrk_df.cross_launches = 0
-    ek.syrk_df_plain = counted_plain
-    try:
+    with _counted_plain_calls() as plain_calls:
         _cg_engine.steps = 0
         hist_d, sec_d, res_d, solver = run_chol_chain(workload, device)
-    finally:
-        ek.syrk_df_plain = plain
     _sync(device)
     launches = ek.syrk_df.launches
     n_it = len(hist_d)
@@ -1730,23 +1778,12 @@ def phase_abinitio_csc(d, c, device, card):
     card's second ConstructImpHam are counted from 0, and its plain
     versions must stay uncalled there."""
     from libdmet_preview_tpu_torch.ops import eri_kernels as ek
-    plain_calls = {"cuda": 0}
-    plain = ek.syrk_df_plain
-
-    def counted_plain(F, F2=None):
-        if F.device.type == "cuda":
-            plain_calls["cuda"] += 1
-        return plain(F, F2)
-
     # the path: counts start at 0 here
     _sync(device)
     ek.syrk_df.launches = 0
     ek.syrk_df.cross_launches = 0
-    ek.syrk_df_plain = counted_plain
-    try:
+    with _counted_plain_calls() as plain_calls:
         out_d, sec = csc_step(d)
-    finally:
-        ek.syrk_df_plain = plain
     _sync(device)
     launches = {"syrk_df": ek.syrk_df.launches,
                 "syrk_df_cross": ek.syrk_df.cross_launches}
@@ -1780,6 +1817,424 @@ def phase_abinitio_csc(d, c, device, card):
     return launches
 
 
+# ----------------------------------------------------------------------
+# phase 9: coupled cluster and the k-resolved GDF path
+# ----------------------------------------------------------------------
+
+CC_AI = {"tol": 1e-10, "level_shift": 0.0, "max_cycle": 200}
+CC_LOOP = {"U": 2.0, "int_bath": True, "iters": 3, "tol_fci": 1e-3}
+GDF = {"ncells": AI_NCELLS, "nlo": AI_NLO, "nfac": 300, "neo": 2 * AI_NLO,
+       "dense": {"ncells": 6, "nlo": 4, "nfac": 5}}
+GDF_TOL = 1e-10
+
+
+def run_abinitio_ccsd(r, device, **cc_kw):
+    """CCSD on the embedding problem of the one-shot run r of phase 6, as a
+    user's next step on that lattice: ConstructImpHam, CCSD.run from the
+    folded mean-field density, transformResults with the CC solver.
+    Returns the results and the stage seconds."""
+    import libdmet_preview_tpu_torch.dmet.hubbard as dmet
+    from libdmet_preview_tpu_torch.ops import embham
+    from libdmet_preview_tpu_torch.solvers import CCSD, cc as tcc
+    from libdmet_preview_tpu_torch.utils import timer
+    Lat = r["Lat"]
+    kw = dict(CC_AI, **cc_kw)
+    with timer.recording() as sec:
+        with timer.stage("ConstructImpHam", device):
+            ImpHam, H1e, basis = dmet.ConstructImpHam(
+                Lat, r["rho"], r["vcor"], matching=True, int_bath=True)
+        rho_mf = embham.foldRho_k(Lat.rdm1_lo_k, Lat.R2k_basis(basis))
+        nel = int(round(float(torch.trace(rho_mf[0])
+                              + torch.trace(rho_mf[1]))))
+        solver = CCSD(restricted=False, device=device, **kw)
+        with timer.stage("CCSD.run", device):
+            rdm1, E = solver.run(ImpHam, nelec=nel, dm0=rho_mf)
+        amp, adj = dict(tcc._solve_amplitudes.last), dict(tcc._solve_adjoint.last)
+        with timer.stage("energy", device):
+            _, E_cell, n_cell = dmet.transformResults(
+                rdm1, E, basis, ImpHam, H1e, lattice=Lat, last_dmu=0.0,
+                int_bath=True, solver=solver, solver_args={"nelec": nel})
+    return {"ImpHam": ImpHam, "basis": basis, "nel": nel, "solver": solver,
+            "rdm1": rdm1, "E": E, "E_uhf": solver.scfsolver.e_tot,
+            "E_cell": E_cell, "n_cell": n_cell, "amplitudes": amp,
+            "adjoint": adj}, sec
+
+
+def _seeded_amplitudes(nocc, nvir, seed, device):
+    """Seeded (x1, x2) with x2 antisymmetric in (i, j) and in (a, b)."""
+    rng = np.random.RandomState(seed)
+    x2 = rng.randn(nocc, nocc, nvir, nvir)
+    x2 = x2 - x2.transpose(1, 0, 2, 3)
+    x2 = x2 - x2.transpose(0, 1, 3, 2)
+    return (torch.as_tensor(rng.randn(nocc, nvir), device=device),
+            torch.as_tensor(x2, device=device))
+
+
+def ccsd_detail(solver, ImpHam, device, card, reps=5):
+    """The stages of the CC solve once more, one by one, at the solver's
+    orbitals: seconds of the spin-orbital assembly, a profiled amplitude
+    solve (idle share), ms per residual and per adjoint matvec (CUDA
+    events), then the residual and the matvec at those amplitudes on the
+    CPU against the card.  Returns the relative differences."""
+    from libdmet_preview_tpu_torch.solvers import cc as tcc
+    from libdmet_preview_tpu_torch.utils.misc import as_f64
+    Ca, Cb, na, nb = solver._mo
+    nocc = na + nb
+    opts = dict(solver._opts())
+    blocks = solver._unpack(ImpHam)
+    _sync(device)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        h_so, g = tcc._mo_so_integrals(blocks[:2], blocks[2:],
+                                       as_f64(Ca, device), as_f64(Cb, device),
+                                       na, nb)
+        W = tcc._antisymmetrize(g)
+        del g
+    _sync(device)
+    t_ao2mo = time.perf_counter() - t0
+    nso = h_so.shape[0]
+    if device.type == "cuda":
+        with _Profiled() as prof:
+            t1, t2, conv = tcc._solve_amplitudes(h_so, W, nocc, **opts)
+        idle = prof.idle
+    else:
+        t1, t2, conv = tcc._solve_amplitudes(h_so, W, nocc, **opts)
+        idle = None
+    amp = dict(tcc._solve_amplitudes.last)
+    D1, D2 = tcc._denominators(h_so, W, nocc)
+    mv, _ = tcc._adjoint_operators(h_so, W, nocc, t1, t2, D1, D2)
+    x1, x2 = _seeded_amplitudes(nocc, nso - nocc, 17, device)
+
+    def residual():
+        with torch.no_grad():
+            return tcc._residual(t1, t2, h_so, W, nocc)
+
+    if device.type == "cuda":
+        ms_res = _time_ms(residual, reps=reps)
+        ms_mv = _time_ms(lambda: mv(x1, x2), reps=reps)
+        print("CCSD detail [%s]: %d spin orbitals (nocc %d), W %.2f GB, t2 "
+              "%.1f MB; spin-orbital assembly %.4f s; second amplitude "
+              "solve (profiled): %d iterations, max|R| %.3e, idle share of "
+              "the card %s; %.3f ms per residual, %.3f ms per adjoint "
+              "matvec (CUDA events, %d launches queued)"
+              % (card, nso, nocc, W.numel() * 8 / 1e9, t2.numel() * 8 / 1e6,
+                 t_ao2mo, amp["iterations"], amp["max|R|"],
+                 "not measured" if idle is None else "%.4f" % idle, ms_res,
+                 ms_mv, reps))
+    if not conv:
+        raise AssertionError("the second amplitude solve did not converge")
+    R_d, A_d = residual(), mv(x1, x2)
+    scale_R = float(torch.max(torch.abs(W[:nocc, :nocc, nocc:, nocc:])))
+    # the same two evaluations on the CPU
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    h_c, W_c, t1_c, t2_c = (x.to(cpu) for x in (h_so, W, t1, t2))
+    with torch.no_grad():
+        R_c = tcc._residual(t1_c, t2_c, h_c, W_c, nocc)
+    t_res_c = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mv_c, _ = tcc._adjoint_operators(h_c, W_c, nocc, t1_c, t2_c, D1.to(cpu),
+                                     D2.to(cpu))
+    A_c = mv_c(x1.to(cpu), x2.to(cpu))
+    t_mv_c = time.perf_counter() - t0
+    diffs = {
+        "residual (rel. to max|W_oovv|)": max(
+            float(torch.max(torch.abs(a.to(cpu) - b)))
+            for a, b in zip(R_d, R_c)) / scale_R,
+        "adjoint matvec (rel.)": max(
+            float(torch.max(torch.abs(a.to(cpu) - b)))
+            for a, b in zip(A_d, A_c))
+        / max(float(torch.max(torch.abs(b))) for b in A_c)}
+    print("CCSD detail: on the CPU one residual %.2f s, one adjoint matvec "
+          "with its graph %.2f s" % (t_res_c, t_mv_c))
+    return diffs, idle
+
+
+def phase_abinitio_ccsd(d, device, card):
+    """9a on the card: the launches of its ConstructImpHam are counted
+    from 0 and the plain versions must stay uncalled there."""
+    from libdmet_preview_tpu_torch.ops.eri_kernels import syrk_df
+    torch.cuda.reset_peak_memory_stats()
+    # the path: counts start at 0 here
+    _sync(device)
+    syrk_df.launches = 0
+    syrk_df.cross_launches = 0
+    with _counted_plain_calls() as plain_calls:
+        r, sec = run_abinitio_ccsd(d, device)
+    _sync(device)
+    launches = {"syrk_df": syrk_df.launches,
+                "syrk_df_cross": syrk_df.cross_launches}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    solver, ImpHam, nel = r["solver"], r["ImpHam"], r["nel"]
+    amp, adj = r["amplitudes"], r["adjoint"]
+    print("abinitio CCSD [%s]: neo=%d, nelec=%d, level_shift %.2f, tol "
+          "%.0e: amplitudes %d iterations, max|R| %.3e; adjoint %d matvecs, "
+          "relative residual %.3e, ended by %s"
+          % (card, ImpHam.norb, nel, CC_AI["level_shift"], CC_AI["tol"],
+             amp["iterations"], amp["max|R|"], adj["matvecs"],
+             adj["residual"], adj["branch"]))
+    print("abinitio CCSD [%s]: E(CCSD) %.10f, E(UHF) %.10f, E(CCSD) - "
+          "E(UHF) %.10f; E/cell %.10f (UHF one-shot %.10f), nelec/cell "
+          "%.10f; peak device memory %.3f GB; syrk_df launches %d, cross "
+          "launches %d, plain-version calls on CUDA tensors %d"
+          % (card, r["E"], r["E_uhf"], r["E"] - r["E_uhf"], r["E_cell"],
+             d["E_cell"], r["n_cell"], peak, launches["syrk_df"],
+             launches["syrk_df_cross"], plain_calls["cuda"]))
+    for k, v in sec.items():
+        print("abinitio CCSD [%s]: stage %-36s %.6f s (%d call%s)"
+              % (card, k, sum(v), len(v), "" if len(v) == 1 else "s"))
+    grad = sum(sec["CC gradient (adjoint and vjp inside)"])
+    print("abinitio CCSD [%s]: %.4f s per amplitude iteration, %.4f s per "
+          "adjoint matvec in the solve; the gradient outside the adjoint "
+          "and the residual's vjp (ao2mo backward) %.4f s"
+          % (card, sum(sec["CC amplitudes"]) / amp["iterations"],
+             sum(sec["CC adjoint"]) / max(adj["matvecs"], 1),
+             grad - sum(sec["CC adjoint"])
+             - sum(sec["CC residual vjp to integrals"])))
+    rdm1 = r["rdm1"]
+    checks = {
+        "E from the RDMs (run_dmet_ham)": (abs(solver.run_dmet_ham(ImpHam)
+                                               - r["E"]), 1e-8),
+        "tr(rdm1) - nelec": (abs(float(torch.trace(rdm1[0])
+                                       + torch.trace(rdm1[1])) - nel), 1e-8),
+        "rdm1 asymmetry": (float(torch.max(torch.abs(
+            rdm1 - rdm1.transpose(1, 2)))), 1e-12)}
+    diffs, idle = ccsd_detail(solver, ImpHam, device, card)
+    checks.update({"cuda vs cpu " + k: (v, 1e-10) for k, v in diffs.items()})
+    bad = []
+    for k, (v, tol) in checks.items():
+        print("abinitio CCSD: %-44s %.3e (tol %.0e)" % (k, v, tol))
+        if not v <= tol:
+            bad.append(k)
+    if not (amp["converged"] and adj["residual"] is not None
+            and adj["residual"] <= 1e-8):
+        bad.append("CCSD did not converge")
+    if launches != {"syrk_df": 2, "syrk_df_cross": 1} \
+            or plain_calls["cuda"] != 0 or ImpHam.norb != PATH_SHAPE[1]:
+        bad.append("launch counts %s, plain calls %d"
+                   % (launches, plain_calls["cuda"]))
+    if not (np.isfinite(r["E_cell"]) and r["E"] < r["E_uhf"]
+            and tuple(rdm1.shape) == (2, ImpHam.norb, ImpHam.norb)):
+        bad.append("energy or shape")
+    if bad:
+        raise AssertionError("abinitio CCSD failed: %s" % bad)
+    return launches
+
+
+def phase_ccsd_loop(device, card, fci_res):
+    """9b: run_dmet with the CCSD solver on the IB U=2 case of 7a, three
+    iterations, against that FCI loop's history (fci_res) and against the
+    CPU."""
+    U, int_bath, n_it = CC_LOOP["U"], CC_LOOP["int_bath"], CC_LOOP["iters"]
+    t0 = time.perf_counter()
+    res, sec, _, _ = run_hub2d(U, int_bath, device, max_iter=n_it,
+                               solver="CCSD")
+    wall = time.perf_counter() - t0
+    bad = []
+    for h, h_f in zip(res.history, fci_res.history):
+        diff = h["E"] - h_f["E"]
+        print("hub2d 40x40 IB U=2 CCSD [%s]: iteration %d E/site %.10f, FCI "
+              "loop %.10f, CCSD - FCI %.3e (tol %.0e), nelec/site %.8f"
+              % (card, h["iter"], h["E"], h_f["E"], diff,
+                 CC_LOOP["tol_fci"], h["nelec"]))
+        if not abs(diff) <= CC_LOOP["tol_fci"]:
+            bad.append(("E vs FCI", h["iter"]))
+    outer = {k: v for k, v in sec.items() if not k.startswith("CC ")
+             and not k.startswith("ERI") and not k.startswith("syrk")}
+    print("hub2d 40x40 IB U=2 CCSD [%s]: %d iterations in %.2f s; per "
+          "iteration: %s; inside the solves: %s"
+          % (card, len(res.history), wall,
+             ", ".join("%s %.4f s" % (k, sum(v) / n_it)
+                       for k, v in outer.items()),
+             ", ".join("%s %.4f s (%d calls)" % (k, sum(v) / n_it, len(v))
+                       for k, v in sec.items() if k.startswith("CC "))))
+    if len(res.history) != n_it or bad:
+        raise AssertionError("CCSD loop failed: %s" % bad)
+    res_d = run_hub2d(U, int_bath, device, max_iter=2, solver="CCSD")[0]
+    res_c = run_hub2d(U, int_bath, torch.device("cpu"), max_iter=2,
+                      solver="CCSD")[0]
+    _compare_histories("hub2d 40x40 IB U=2 CCSD", res_d.history,
+                       res_c.history,
+                       dict.fromkeys(["E", "nelec", "last_dmu", "vcor_param",
+                                      "rho_imp"], LOOP_TOL), 2)
+
+
+def make_gdf_workload(device, seed=13, ncells=GDF["ncells"], nlo=GDF["nlo"],
+                      nfac=GDF["nfac"]):
+    """A translation-invariant ERI in factorized form, with no dense
+    tensor: nfac random symmetric real-space factors l_x (nsites, nsites)
+    that decay with the cell distance, NumPy from `seed`, and all ncells
+    translations of each.  Returns (L, factors): the Cholesky vectors L
+    (nfac * ncells, nsites, nsites) and the k-resolved factors {q: (F_re,
+    F_im)} that follow analytically, F_q[k, p, a, x] = lt_x[k p, (k + q) a]
+    / sqrt(ncells) with lt_x the double Fourier transform of l_x
+    (make_gdf_factors' convention), tensors on `device`.  The gamma-like
+    block F_0[0] is made exactly real-symmetric."""
+    from libdmet_preview_tpu_torch.ops.eri_transform import _dft_phase
+    rng = np.random.RandomState(seed)
+    nsites = ncells * nlo
+    dist = np.abs(np.arange(ncells)[:, None] - np.arange(ncells)[None, :])
+    decay = 1.0 / (1.0 + np.minimum(dist, ncells - dist)) ** 2
+    l = rng.randn(nfac, nsites, nsites)
+    l = (0.01 * (l + l.transpose(0, 2, 1))).reshape(nfac, ncells, nlo,
+                                                    ncells, nlo)
+    l5 = torch.as_tensor(l * decay[None, :, None, :, None], device=device)
+    L = torch.cat([torch.roll(l5, (R, R), dims=(1, 3))
+                   for R in range(ncells)]).reshape(-1, nsites, nsites)
+    P = _dft_phase(ncells, device)
+    lt = torch.einsum("kA, xApBq -> xkpBq", P, l5.to(torch.complex128))
+    lt = torch.einsum("lB, xkpBq -> xkplq", P.conj(), lt)
+    k = torch.arange(ncells, device=device)
+    factors = {}
+    for q in range(ncells):
+        F = lt[:, k, :, (k + q) % ncells, :]           # (k, x, p, a)
+        F = F.permute(0, 2, 3, 1) / np.sqrt(ncells)
+        F_re, F_im = F.real.contiguous(), F.imag.contiguous()
+        if q == 0:
+            F_re[0] = 0.5 * (F_re[0] + F_re[0].transpose(0, 1))
+            F_im[0] = 0.0
+        factors[q] = (F_re, F_im)
+    return L, factors
+
+
+def _stripe_density(rng, ncells, n, spin):
+    """A real stripe with st[-R] = st[R]^T and its supercell matrix
+    (spin, nsites, nsites), block (ci, cj) = st[ci - cj]."""
+    st = np.stack([_tr_stripe(rng, ncells, n, 0.3) for _ in range(spin)])
+    full = np.zeros((spin, ncells * n, ncells * n))
+    for ci in range(ncells):
+        for cj in range(ncells):
+            full[:, ci * n:(ci + 1) * n, cj * n:(cj + 1) * n] = \
+                st[:, (ci - cj) % ncells]
+    return st, full
+
+
+def _best_of(fn, device, reps=3):
+    """(result, least host-clock seconds of `reps` synchronised calls)."""
+    best = np.inf
+    for _ in range(reps):
+        _sync(device)
+        t0 = time.perf_counter()
+        out = fn()
+        _sync(device)
+        best = min(best, time.perf_counter() - t0)
+    return out, best
+
+
+def gdf_against_cholesky(device, ncells=GDF["ncells"], nlo=GDF["nlo"],
+                         nfac=GDF["nfac"], neo=GDF["neo"]):
+    """get_emb_eri_gdf and get_jk_from_gdf on `device` from the analytic
+    factors against get_emb_eri_chol and J, K einsums over the Cholesky
+    vectors of the same integrals.  Returns (relative differences, the
+    results, the factors)."""
+    from libdmet_preview_tpu_torch.ops import fourier
+    from libdmet_preview_tpu_torch.ops.eri_transform import (
+        _dft_phase, get_emb_eri_chol, get_emb_eri_gdf)
+    from libdmet_preview_tpu_torch.ops.pbc_helper import get_jk_from_gdf
+    L, factors = make_gdf_workload(device, ncells=ncells, nlo=nlo, nfac=nfac)
+    rng = np.random.RandomState(21)
+    basis = rng.randn(1, ncells, nlo, neo) / np.sqrt(ncells * nlo)
+    basis_k = fourier.R2k(torch.as_tensor(basis, device=device), (ncells,))
+    ref, t_chol = _best_of(lambda: get_emb_eri_chol(L, basis), device)
+    out, sec, diffs = {}, {"get_emb_eri_chol": t_chol}, {}
+    scale = float(torch.max(torch.abs(ref)))
+    for tr in (False, True):
+        name = "get_emb_eri_gdf(tr_symm=%s)" % tr
+        out[name], sec[name] = _best_of(
+            lambda: get_emb_eri_gdf(factors, basis_k, ncells, nlo,
+                                    tr_symm=tr, device=device), device)
+        diffs[name + " vs chol"] = float(
+            torch.max(torch.abs(out[name] - ref))) / scale
+    # J and K of a translation-invariant density, from L in the supercell
+    # and carried to k: V_k = (1/N) sum_{AB} P[k, A] conj(P[k, B]) V[A, B]
+    st, dm_full = _stripe_density(rng, ncells, nlo, 2)
+    dm_k = fourier.R2k(torch.as_tensor(st, device=device), (ncells,))
+    (vj, vk), sec["get_jk_from_gdf"] = _best_of(
+        lambda: get_jk_from_gdf(factors, dm_k, device=device), device)
+    out["vj"], out["vk"] = vj, vk
+    D = torch.as_tensor(dm_full, device=device)
+    w = torch.einsum("xrs, trs -> tx", L, D)
+    vj_full = torch.einsum("xpq, tx -> tpq", L, w)
+    vk_full = torch.stack([torch.einsum("xpq, rq, xrs -> ps", L, D[t], L)
+                           for t in range(2)])
+    P = _dft_phase(ncells, device)
+
+    def to_k(V):
+        V6 = V.reshape(2, ncells, nlo, ncells, nlo).to(torch.complex128)
+        return torch.einsum("kA, kB, tApBq -> tkpq", P, P.conj(), V6) / ncells
+
+    for name, got, full in (("J", vj, vj_full), ("K", vk, vk_full)):
+        want = to_k(full)
+        diffs["get_jk_from_gdf %s vs einsum over L" % name] = float(
+            torch.max(torch.abs(got - want)) / torch.max(torch.abs(want)))
+    return diffs, out, factors, sec
+
+
+def phase_gdf(device, card):
+    """9c."""
+    from libdmet_preview_tpu_torch import interop
+    from libdmet_preview_tpu_torch.ops.cderi import read_cderi, write_cderi
+    from libdmet_preview_tpu_torch.ops.eri_kernels import syrk_df
+    from libdmet_preview_tpu_torch.ops.eri_transform import make_gdf_factors
+    ncells, nlo = GDF["ncells"], GDF["nlo"]
+    syrk_df.launches = 0
+    diffs, out_d, factors, sec = gdf_against_cholesky(device)
+    launches = syrk_df.launches
+    nbytes = sum(f[0].numel() * 16 for f in factors.values())
+    print("GDF [%s]: %d cells x %d LOs, %d factors per transfer, %.1f MB of "
+          "complex factors, %d Cholesky vectors; syrk_df launches of the "
+          "Cholesky side %d (3 timed calls)"
+          % (card, ncells, nlo, GDF["nfac"], nbytes / 1e6,
+             GDF["nfac"] * ncells, launches))
+    for k, v in sec.items():
+        print("GDF [%s]: %-32s %.6f s per call (best of 3)" % (card, k, v))
+    diffs_c, out_c, _, _ = gdf_against_cholesky(torch.device("cpu"))
+    for k in out_d:
+        diffs["cuda vs cpu " + k] = float(
+            torch.max(torch.abs(out_d[k].cpu() - out_c[k]))
+            / torch.max(torch.abs(out_c[k])))
+    # the CDERI archive, written and read back
+    host = interop.gdf_factors_to_numpy(factors)
+    kpts_scaled = np.asarray([[0.0, 0.0, f] for f in np.fft.fftfreq(ncells)])
+    kpts = 2.0 * np.pi * kpts_scaled / 7.3
+    with tempfile.TemporaryDirectory() as tmp:
+        fname = os.path.join(tmp, "cderi.npz")
+        t0 = time.perf_counter()
+        write_cderi(fname, host, kpts, kpts_scaled, nlo)
+        t1 = time.perf_counter()
+        back = read_cderi(fname, kpts, kpts_scaled, nlo)
+        t2 = time.perf_counter()
+        size = os.path.getsize(fname)
+    same = all(np.array_equal(back[q][i], host[q][i])
+               for q in host for i in (0, 1))
+    print("GDF: CDERI archive %.1f MB, write %.2f s, read %.2f s, "
+          "bit-identical: %s" % (size / 1e6, t1 - t0, t2 - t1, same))
+    # the analytic factors' convention against make_gdf_factors' own
+    small = GDF["dense"]
+    nc, n = small["ncells"], small["nlo"]
+    L, fa = make_gdf_workload(device, ncells=nc, nlo=n, nfac=small["nfac"])
+    eri = torch.einsum("xpq, xrs -> pqrs", L, L)
+    fm = make_gdf_factors(eri, nc, n, device=device)
+    worst = 0.0
+    for q in fa:
+        Fa = torch.complex(*fa[q]).reshape(nc * n * n, -1)
+        Fm = torch.complex(*fm[q]).reshape(nc * n * n, -1)
+        Ma, Mm = Fa @ Fa.conj().T, Fm @ Fm.conj().T
+        worst = max(worst, float(torch.max(torch.abs(Ma - Mm))
+                                 / torch.max(torch.abs(Mm))))
+    diffs["dense case: M_q analytic vs make_gdf_factors"] = worst
+    for k, v in diffs.items():
+        print("GDF: %-52s %.3e (tol %.0e)" % (k, v, GDF_TOL))
+    bad = [k for k, v in diffs.items() if not v <= GDF_TOL]
+    bad += [k for k, v in diffs_c.items() if not v <= GDF_TOL]
+    if not same:
+        bad.append("CDERI round trip")
+    if launches < 1 or tuple(out_d["vk"].shape) != (2, ncells, nlo, nlo):
+        bad.append("launches or shapes")
+    if bad:
+        raise AssertionError("GDF phase failed: %s" % bad)
+
+
 def main():
     t_start = time.perf_counter()
     device, card = phase_device()
@@ -1790,9 +2245,12 @@ def main():
     phase_hubbard(device)
     launches_ai, run_d, run_c = phase_abinitio_uhf(device)
     with _quiet():
+        launches_cc = phase_abinitio_ccsd(run_d, device, card)
         launches_csc = phase_abinitio_csc(run_d, run_c, device, card)
         del run_d, run_c
-        phase_dmet_loop_hubbard(device, card)
+        hub2d = phase_dmet_loop_hubbard(device, card)
+        phase_ccsd_loop(device, card, hub2d["IB U=2"])
+        phase_gdf(device, card)
         launches_chol, err_chol, times_chol = phase_dmet_loop_cholesky(
             device, card)
         phase_pdmet(device, card)
@@ -1809,11 +2267,13 @@ def main():
              {"bench": launches_bench,
               "abinitio_uhf": launches_ai["syrk_df"],
               "abinitio_csc": launches_csc["syrk_df"],
+              "abinitio_ccsd": launches_cc["syrk_df"],
               "dmet_loop_cholesky": launches_chol}),
             ("syrk_df_cross", "cross",
              "libdmet_preview_tpu/ops/pallas_eri.py:45",
              {"abinitio_uhf": launches_ai["syrk_df_cross"],
-              "abinitio_csc": launches_csc["syrk_df_cross"]})]:
+              "abinitio_csc": launches_csc["syrk_df_cross"],
+              "abinitio_ccsd": launches_cc["syrk_df_cross"]})]:
         ms, plain_ms = times[(name, naux, neo)]
         bound_ms, bound_by, _ = kernel_bound(kind, naux, npair)
         print("%s at the path shape (naux=%d, neo=%d): kernel/cuBLAS %.3f, "

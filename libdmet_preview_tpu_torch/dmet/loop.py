@@ -40,16 +40,16 @@ class DmetResult:
 def _make_solver(config, device):
     from libdmet_preview_tpu_torch import solvers
     name = config.solver.upper()
+    kw = dict(restricted=config.restricted, tol=config.solver_tol,
+              device=device)
     if name == "FCI":
-        return solvers.FCI(restricted=config.restricted,
-                           tol=config.solver_tol, device=device)
+        return solvers.FCI(**kw)
+    if name == "CCSD":
+        return solvers.CCSD(**kw)
+    if name == "MP2":
+        return solvers.MP2(**kw)
     if name == "HF":
         return solvers.SCFSolver(restricted=config.restricted, device=device)
-    if name in ("CCSD", "MP2"):
-        raise NotImplementedError(
-            "run_dmet: the %s solver comes with the coupled-cluster slice "
-            "(Slice 3)"
-            % name)
     if name == "CASCI":
         raise ValueError("CASCI needs an explicit (ncas, nelecas); pass a "
                          "solver instance via run_dmet(..., solver=...)")

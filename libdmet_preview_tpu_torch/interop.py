@@ -123,6 +123,33 @@ def integral_from_numpy(norb, restricted, H0, H1, H2, device, ovlp=None):
                     ovlp=None if ovlp is None else copy(ovlp))
 
 
+def gdf_factors_from_numpy(factors, device):
+    """The JAX package's per-transfer GDF factors {q: (F_re, F_im)} (F
+    shaped (ncells, nlo, nlo, naux_q)) as float64 tensors on `device`, in
+    the same dict layout."""
+    return {int(q): (as_f64(np.asarray(f[0]), device),
+                     as_f64(np.asarray(f[1]), device))
+            for q, f in factors.items()}
+
+
+def gdf_factors_to_numpy(factors):
+    """The port's GDF factors back as the {q: (F_re, F_im)} dict of NumPy
+    arrays that the JAX package and ops.cderi take."""
+    return {int(q): tuple(x.detach().cpu().numpy() if
+                          isinstance(x, torch.Tensor) else np.asarray(x)
+                          for x in f)
+            for q, f in factors.items()}
+
+
+def cc_amplitudes_from_numpy(t1, t2, device):
+    """Coupled-cluster amplitudes of the JAX package (t1 (nocc, nvir), t2
+    (nocc, nocc, nvir, nvir), spin-orbital order [occ_a, occ_b, vir_a,
+    vir_b]) as float64 tensors on `device`, for solvers.cc._residual and
+    _solve_adjoint."""
+    return (as_f64(np.asarray(t1, dtype=np.float64), device),
+            as_f64(np.asarray(t2, dtype=np.float64), device))
+
+
 def dmet_config_from_dict(settings):
     """A port DmetConfig from the fields of the JAX package's DmetConfig
     (dataclasses.asdict of it); unknown fields raise."""

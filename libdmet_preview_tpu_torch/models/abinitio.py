@@ -21,8 +21,8 @@ class AbInitioHam(object):
         if chol_L is None:
             raise NotImplementedError(
                 "AbInitioHam: the 'aft' format (no Cholesky factors) is "
-                "not ported yet: it belongs to the GDF/AFT ab initio "
-                "slice (Slice 3)")
+                "not ported yet: its transforms live in the integral "
+                "engine (Slice 7)")
         self.H1_R = H1_R
         self.fock_R = fock_R
         self.chol_L = chol_L

@@ -443,8 +443,8 @@ def _emb_H2(lattice, basis, vcor, int_bath=True, **kwargs):
         unit = LatH2[:npair]
     elif lattice.H2_format == "aft":
         raise NotImplementedError(
-            "embedding H2: the 'aft' format is not ported yet: it belongs "
-            "to the GDF/AFT ab initio slice (Slice 3)")
+            "embedding H2: the 'aft' format is not ported yet: its "
+            "transforms live in the integral engine (Slice 7)")
     else:
         raise ValueError("unknown H2 format %s" % lattice.H2_format)
     return unit2emb(unit, neo)

@@ -1,7 +1,7 @@
 """
 Embedded mean field on an `Integral` (PyTorch port of
 libdmet_preview_tpu/solvers/scf.py: _veff_uhf, _eigh_gen, SCF.HF,
-SCFSolver).
+SCFSolver, ao2mo_Ham, restore_Ham).
 
 The Fock builds (J/K from the spin-blocked embedding ERIs, n^4 work) run on
 the solver's device; the tiny n x n steps around them (generalized eigh,
@@ -18,7 +18,7 @@ import torch
 from libdmet_preview_tpu_torch.utils import logger as log
 from libdmet_preview_tpu_torch.utils.misc import as_f64
 from libdmet_preview_tpu_torch.ops.diis import DIIS
-from libdmet_preview_tpu_torch.models.integral import restore_eri
+from libdmet_preview_tpu_torch.models.integral import Integral, restore_eri
 
 
 def _veff_uhf(dma, dmb, eri_aa, eri_bb, eri_ab):
@@ -395,3 +395,44 @@ class SCFSolver(object):
 
     def cleanup(self):
         pass
+
+
+def ao2mo_Ham(Ham, C, device=torch.device("cuda")):
+    """Rotate an Integral into an MO basis on `device`: H1/H2 transformed
+    per spin; H0 unchanged.  The result's blocks are tensors on `device`.
+
+    C: (nao, nmo) or (spin, nao, nmo).  Restricted Integrals stay
+    restricted; unrestricted rotate each spin block (H2 spin order
+    [aa, bb, ab])."""
+    device = torch.device(device)
+    n = Ham.norb
+    H1 = as_f64(Ham.H1["cd"], device)
+    spin = H1.shape[0]
+    C = as_f64(C, device)
+    if C.ndim == 2:
+        C = C[None].expand(spin, -1, -1)
+    nmo = C.shape[-1]
+
+    def t4(g, ca, cb):
+        return torch.einsum("pqrs, pi, qj, rk, sl -> ijkl", g, ca, ca, cb, cb)
+
+    h1 = C.transpose(-1, -2) @ H1 @ C
+    H2 = Ham.H2["ccdd"]
+    if len(H2) == 1:
+        g_mo = t4(_s1_block(H2[0], n, device), C[0], C[0])[None]
+    else:
+        gs = [_s1_block(H2[i], n, device) for i in range(3)]
+        g_mo = torch.stack([t4(gs[0], C[0], C[0]), t4(gs[1], C[1], C[1]),
+                            t4(gs[2], C[0], C[1])])
+    return Integral(nmo, Ham.restricted, Ham.bogoliubov, Ham.H0,
+                    {"cd": h1}, {"ccdd": g_mo})
+
+
+def restore_Ham(Ham_mo, C, ovlp=None, device=torch.device("cuda")):
+    """Back-rotate an MO-basis Integral to the original basis (inverse of
+    ao2mo_Ham for S-orthonormal C): X_ao = (S C) X_mo (S C)^T, i.e.
+    ao2mo_Ham with the rotation (S C)^T."""
+    C = _host(C)
+    n = C.shape[-2]
+    S = np.eye(n) if ovlp is None else _host(ovlp)
+    return ao2mo_Ham(Ham_mo, np.swapaxes(S @ C, -1, -2), device=device)

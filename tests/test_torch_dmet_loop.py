@@ -180,15 +180,18 @@ def test_run_dmet_hub2d_40x40_anchor(int_bath, U, anchor, tmp_path):
 
 
 def test_run_dmet_unported_solvers_raise():
-    import libdmet_preview_tpu_torch.dmet.hubbard as dmet
-    from libdmet_preview_tpu_torch.dmet.loop import run_dmet
+    """Every solver DmetConfig names is built but CASCI, which needs an
+    explicit active space; an unknown name raises."""
+    from libdmet_preview_tpu_torch import solvers
+    from libdmet_preview_tpu_torch.dmet.loop import _make_solver
     from libdmet_preview_tpu_torch.utils.config import DmetConfig
-    Lat = dmet.ChainLattice(6, 2)
-    Lat.set_Ham(dmet.Ham(Lat, 4.0), device=CPU)
-    vcor = dmet.PMInitGuess([2], 4.0, FILLING)
-    for name in ("CCSD", "MP2"):
-        with pytest.raises(NotImplementedError):
-            run_dmet(Lat, vcor, DmetConfig(solver=name))
+    for name, cls in (("FCI", solvers.FCI), ("CCSD", solvers.CCSD),
+                      ("MP2", solvers.MP2), ("HF", solvers.SCFSolver)):
+        s = _make_solver(DmetConfig(solver=name, restricted=True), CPU)
+        assert type(s) is cls and s.restricted and s.device == CPU
+    for name in ("CASCI", "DMRG"):
+        with pytest.raises(ValueError):
+            _make_solver(dataclasses.replace(DmetConfig(), solver=name), CPU)
 
 
 # ----------------------------------------------------------------------

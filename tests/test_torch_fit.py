@@ -93,3 +93,79 @@ def test_fit_engine_matches_jax(engine, spin):
     assert float(err_j) < 0.5 * err_start          # the fit made progress
     assert np.max(np.abs(p_t.numpy() - np.asarray(p_j))) < 1e-7
     assert abs(float(err_t) - float(err_j)) < 1e-9
+
+
+def _traced(module, engine, args):
+    """Run `engine(*args)` with module._lm_loop's state function wrapped:
+    returns (result, [err of every state evaluation])."""
+    errs = []
+    loop = module._lm_loop
+
+    def traced_loop(state, *a, **k):
+        def traced_state(p):
+            out = state(p)
+            errs.append(float(out[0]))
+            return out
+        return loop(traced_state, *a, **k)
+
+    module._lm_loop = traced_loop
+    try:
+        return engine(*args), errs
+    finally:
+        module._lm_loop = loop
+
+
+def test_lm_fit_steps_on_the_bench_workload_match_jax():
+    """The LM fit of the fused iteration at the bench workload (Nk=27,
+    nlo=16, neo=32, 20 steps allowed; chip_smoke.make_bench_workload with
+    the target carried into the fit basis) takes the same steps in both
+    packages: 3, each accepted, stopped by max|grad err| < 0.1 gtol and
+    not by two small or rejected steps in a row.  Run with -s for the
+    trace."""
+    import chip_smoke as cs
+    from libdmet_preview_tpu.ops import fit as jfit
+    from libdmet_preview_tpu_torch.ops import fastpath
+    from libdmet_preview_tpu_torch.ops import fit as tfit
+    cpu = torch.device("cpu")
+    Lat, vcor, rho_t, L = cs.make_bench_workload(naux=4)
+    captured = []
+    engine = fastpath._lm_engine_ft
+    fastpath._lm_engine_ft = lambda *a: captured.append(a) or engine(*a)
+    try:
+        step, p0 = fastpath.make_dmet_iteration(
+            Lat, vcor, cs.FILLING, beta=cs.BETA,
+            fit_max_iter=cs.N_FIT_STEPS, chol_L=L, engine="lm", device=cpu)
+        dp = np.random.RandomState(7).randn(len(vcor.param)) * 0.1
+        tgt = cs.target_in_fit_basis(step, p0, torch.as_tensor(dp),
+                                     torch.as_tensor(rho_t), cs.bench_target)
+        captured.clear()
+        step(p0, tgt)
+    finally:
+        fastpath._lm_engine_ft = engine
+    (args,) = captured
+    max_iter, ytol, gtol = args[6:9]
+    (p_t, err_t, g_t), errs_t = _traced(tfit, tfit._lm_engine_ft, args)
+    args_j = [jnp.asarray(a.numpy()) if isinstance(a, torch.Tensor) else a
+              for a in args]
+    with jax.disable_jit():         # the while_loop then runs in Python
+        (p_j, err_j, g_j), errs_j = _traced(jfit, jfit._lm_engine_ft, args_j)
+
+    def steps(errs):
+        best, seq = errs[0], []
+        for e in errs[1:]:
+            seq.append("accept" if e < best else "reject")
+            best = min(best, e)
+        return seq
+
+    print("port: err per state evaluation %s, steps %s, max|grad| %.3e"
+          % (errs_t, steps(errs_t), float(g_t)))
+    print("jax:  err per state evaluation %s, steps %s, max|grad| %.3e; "
+          "max|p_port - p_jax| %.3e"
+          % (errs_j, steps(errs_j), float(g_j),
+             float(np.abs(p_t.numpy() - np.asarray(p_j)).max())))
+    assert steps(errs_t) == steps(errs_j) == ["accept"] * 3
+    assert len(errs_t) - 1 < max_iter
+    assert np.abs(np.asarray(errs_t) - np.asarray(errs_j)).max() < 1e-10
+    assert float(g_t) < 0.1 * gtol and float(g_j) < 0.1 * gtol
+    assert errs_t[-2] - errs_t[-1] > ytol       # not the small-step rule
+    assert np.abs(p_t.numpy() - np.asarray(p_j)).max() < 1e-10
