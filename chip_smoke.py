@@ -95,7 +95,7 @@ Phases, in order; any failure raises and the process exits non-zero:
          filling 5/6, UHF, non-interacting bath, FCI on 12 embedding
          orbitals with 12 electrons (924^2 = 853,776 determinants), the
          dmu loop (MuSolver, step=0.3) followed by FitVcor and a vcor
-         update, four DMET iterations; nelec per site, the cluster's
+         update, two DMET iterations; nelec per site, the cluster's
          mirror-related occupations and the hole count are held, and the
          first iteration's impurity problem is checked against the CPU
          (one sigma application at 1e-10; the whole solve, E 1e-8 and
@@ -144,6 +144,37 @@ Phases, in order; any failure raises and the process exits non-zero:
          factors bit-identical; on a 6-cell, 4-orbital dense case
          make_gdf_factors' M_q = F F^H against the analytic factors'
          (1e-10).
+
+  10. the superconducting / GSO formalism (dmet.loop.run_dmet_sc,
+     dmet.hubbard_gso, dmet.hubbard_bcs, ops.spinless):
+     10a. the repulsive doped d-wave anchor: SquareLattice(4, 4, 2, 2),
+          U=4, filling 0.4375, VcorSC with a +-0.1 d-wave pairing seed,
+          run_dmet_sc(mixing=0.5, diis_start=10) to convergence: E/site
+          -0.9352863316 (1e-6), |kappa_x| 0.0952150 (1e-4), d-wave signs,
+          C4-equal magnitudes (1e-5), nelec (1e-4);
+     10b. the doped spinless anchor at full width: SquareLattice(60, 60,
+          2, 2) (900 cells, nso = 8, neo = 16, FCI(ghf) on 12,870
+          determinants), U=6, filling 0.4, AFInitGuess(bogoliubov=True,
+          bogo_res=True, rand=0.001), beta=1000, SCDM bath, trace fix from
+          iteration 3, to convergence in at most 30 iterations: E/site
+          -1.001725641814 (2e-4), nelec (1e-4); stage seconds, GHF
+          diagonalizations, FCI.run calls, sigma builds and CG steps per
+          iteration, peak memory; the first two iterations replayed on the
+          CPU from the states the card started them from (E, nelec, dmu,
+          the impurity GSO density: 1e-8); the idle share of one
+          iteration;
+     10c. the ab initio GSO interacting bath on phase 6's lattice (run
+          right after 9a): GSOHam(int_bath=True) -> GHartreeFock ->
+          ConstructImpHam at neo = 120, with exactly 1 symmetric and 0
+          cross syrk launches and no plain-version call on the card; the
+          GSO ERI against the einsum of the rotated species difference
+          (1e-12 relative, exactly symmetric); mu, the H1 and JK_core
+          spectra, the bath projector and the mean-field energy of
+          get_H_dmet_ib on the folded mean-field GSO density, card against
+          CPU (1e-8); the symmetric kernel at (naux, neo) = (2400, 120)
+          against its plain version, timed beside cuBLAS and its bound;
+          and, inside 9c, get_emb_eri_gso_gdf against get_emb_eri_gso_chol
+          on the same factors for a random GSO basis (1e-10 relative).
 
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}.
@@ -1239,7 +1270,7 @@ PDMET = {"size": (40, 40), "imp": (2, 2), "U": 4.0, "beta": 1000.0,
 IB_FOCK = {"size": (6, 6), "imp": (2, 2), "U": 8.0, "beta": 1000.0,
            "max_iter": 50, "anchor": -0.51685, "tol": 1e-4}
 THREE_BAND = {"factory": "Square3BandAFM", "size": (20, 20), "name": "Hanke",
-              "filling": 5.0 / 6.0, "iters": 4, "cu": [0, 1],
+              "filling": 5.0 / 6.0, "iters": 2, "cu": [0, 1],
               # oxygen pairs that the impurity cluster's mirror x -> 4 - x
               # maps onto each other (sites (1, 1) and (3, 1))
               "mirror_pairs": [(4, 5)], "cpu_solve_seconds": 90.0,
@@ -2129,7 +2160,8 @@ def gdf_against_cholesky(device, ncells=GDF["ncells"], nlo=GDF["nlo"],
     results, the factors)."""
     from libdmet_preview_tpu_torch.ops import fourier
     from libdmet_preview_tpu_torch.ops.eri_transform import (
-        _dft_phase, get_emb_eri_chol, get_emb_eri_gdf)
+        _dft_phase, get_emb_eri_chol, get_emb_eri_gdf, get_emb_eri_gso_chol,
+        get_emb_eri_gso_gdf)
     from libdmet_preview_tpu_torch.ops.pbc_helper import get_jk_from_gdf
     L, factors = make_gdf_workload(device, ncells=ncells, nlo=nlo, nfac=nfac)
     rng = np.random.RandomState(21)
@@ -2167,6 +2199,17 @@ def gdf_against_cholesky(device, ncells=GDF["ncells"], nlo=GDF["nlo"],
         want = to_k(full)
         diffs["get_jk_from_gdf %s vs einsum over L" % name] = float(
             torch.max(torch.abs(got - want)) / torch.max(torch.abs(want)))
+    # 10c: the GSO ERI from the same factors against the Cholesky route,
+    # for a random real GSO basis (1, ncells, 2 nlo, neo)
+    gbasis = rng.randn(1, ncells, 2 * nlo, neo) / np.sqrt(2 * ncells * nlo)
+    gbasis_k = fourier.R2k(torch.as_tensor(gbasis, device=device), (ncells,))
+    ref, sec["get_emb_eri_gso_chol"] = _best_of(
+        lambda: get_emb_eri_gso_chol(L, gbasis), device)
+    out["gso"], sec["get_emb_eri_gso_gdf"] = _best_of(
+        lambda: get_emb_eri_gso_gdf(factors, gbasis_k, ncells, nlo,
+                                    device=device), device)
+    diffs["get_emb_eri_gso_gdf vs gso chol"] = float(
+        torch.max(torch.abs(out["gso"] - ref)) / torch.max(torch.abs(ref)))
     return diffs, out, factors, sec
 
 
@@ -2183,7 +2226,8 @@ def phase_gdf(device, card):
     nbytes = sum(f[0].numel() * 16 for f in factors.values())
     print("GDF [%s]: %d cells x %d LOs, %d factors per transfer, %.1f MB of "
           "complex factors, %d Cholesky vectors; syrk_df launches of the "
-          "Cholesky side %d (3 timed calls)"
+          "Cholesky side %d (3 timed calls each of get_emb_eri_chol and "
+          "get_emb_eri_gso_chol)"
           % (card, ncells, nlo, GDF["nfac"], nbytes / 1e6,
              GDF["nfac"] * ncells, launches))
     for k, v in sec.items():
@@ -2235,6 +2279,323 @@ def phase_gdf(device, card):
         raise AssertionError("GDF phase failed: %s" % bad)
 
 
+# ----------------------------------------------------------------------
+# phase 10: the superconducting / GSO formalism on the card
+# ----------------------------------------------------------------------
+
+DWAVE = {"size": (4, 4), "imp": (2, 2), "U": 4.0, "filling": 0.4375,
+         "max_iter": 20, "anchor": -0.9352863316, "kappa_x": 0.0952150,
+         "x_bonds": [(0, 2), (1, 3)], "y_bonds": [(0, 1), (2, 3)]}
+DOPED = {"size": (60, 60), "imp": (2, 2), "U": 6.0, "filling": 0.4,
+         "beta": 1000.0, "max_iter": 30, "anchor": -1.001725641814,
+         "tol": 2e-4, "compare": 2}
+GSO_AI_SHAPE = (AI_NAUX, 4 * AI_NLO)   # (naux, neo) of the GSO ERI
+
+
+def _sc_counts_reset(solver):
+    from libdmet_preview_tpu_torch.ops import spinless
+    from libdmet_preview_tpu_torch.ops.fit import _cg_engine
+    spinless.GHF.calls = 0
+    _cg_engine.steps = 0
+    solver.n_run = solver.n_sigma = 0
+
+
+def _sc_counts(solver, n_it):
+    """GHF diagonalizations, FCI.run calls, sigma builds and CG steps per
+    DMET iteration since _sc_counts_reset."""
+    from libdmet_preview_tpu_torch.ops import spinless
+    from libdmet_preview_tpu_torch.ops.fit import _cg_engine
+    return {"GHF calls": spinless.GHF.calls / n_it,
+            "FCI.run calls": solver.n_run / n_it,
+            "sigma builds": solver.n_sigma / n_it,
+            "CG steps": _cg_engine.steps / n_it}
+
+
+def _print_sc_run(label, card, res, sec, counts):
+    n_it = len(res.history)
+    for h in res.history:
+        print("%s [%s]: iteration %d E/site %.12f nelec/site %.10f mu %.8f "
+              "dmu %.8f fit err %.3e dVcor %.3e"
+              % (label, card, h["iter"], h["E"], h["nelec"], h["mu"],
+                 h["dmu"], h["fit_err"], h["dVcor"]))
+    _print_stages(label, card, sec, n_it)
+    print("%s [%s]: per iteration %s" % (label, card, ", ".join(
+        "%.1f %s" % (v, k) for k, v in counts.items())))
+
+
+def run_dwave(device, max_iter=DWAVE["max_iter"]):
+    """10a: run_dmet_sc on the repulsive doped d-wave 4 x 4 anchor."""
+    import itertools as it
+    from libdmet_preview_tpu_torch.dmet import hubbard_bcs as bcs
+    from libdmet_preview_tpu_torch.dmet.loop import run_dmet_sc
+    from libdmet_preview_tpu_torch.solvers import FCI
+    from libdmet_preview_tpu_torch.utils import timer
+    U, filling = DWAVE["U"], DWAVE["filling"]
+    Lat = bcs.SquareLattice(*DWAVE["size"], *DWAVE["imp"])
+    Lat.set_Ham(bcs.Ham(Lat, U), use_hcore_as_emb_ham=True, device=device)
+    nao = Lat.nscsites
+    vcor = bcs.VcorSC(nao)
+    p0 = np.zeros(vcor.length())
+    nV = nao * (nao + 1) // 2
+    for idx, (i, j) in enumerate(it.combinations_with_replacement(range(nao),
+                                                                  2)):
+        if i == j:
+            p0[idx] = U * filling
+        if (i, j) in DWAVE["x_bonds"]:
+            p0[nV + idx] = 0.1
+        if (i, j) in DWAVE["y_bonds"]:
+            p0[nV + idx] = -0.1
+    vcor.update(p0)
+    solver = FCI(restricted=True, ghf=True, tol=1e-10, device=device)
+    _sc_counts_reset(solver)
+    with timer.recording() as sec:
+        res = run_dmet_sc(Lat, vcor, filling, solver=solver,
+                          max_iter=max_iter, mu0=U * filling, mixing=0.5,
+                          diis_start=10, conv_tol_E=1e-7, conv_tol_vcor=1e-6,
+                          thrnelec=1e-6)
+    return res, sec, _sc_counts(solver, len(res.history))
+
+
+def phase_dwave(device, card):
+    """10a."""
+    from libdmet_preview_tpu_torch.ops.spinless import extract_rdm
+    t0 = time.perf_counter()
+    res, sec, counts = run_dwave(device)
+    label = "d-wave SC-DMET SquareLattice(4, 4, 2, 2) U=4"
+    print("%s [%s]: %d iterations in %.2f s, converged %s, E/site %.12f "
+          "(anchor %.10f), nelec/site %.10f"
+          % (label, card, len(res.history), time.perf_counter() - t0,
+             res.converged, res.e_per_site, DWAVE["anchor"], res.nelec_imp))
+    _print_sc_run(label, card, res, sec, counts)
+    kap = extract_rdm(res.rho_imp)[2]
+    kx = np.mean([kap[i, j] for i, j in DWAVE["x_bonds"]])
+    ky = np.mean([kap[i, j] for i, j in DWAVE["y_bonds"]])
+    checks = {"E/site - anchor": (abs(res.e_per_site - DWAVE["anchor"]),
+                                  1e-6),
+              "|kappa_x| - 0.0952150": (abs(abs(kx) - DWAVE["kappa_x"]),
+                                        1e-4),
+              "|kappa_x| - |kappa_y|": (abs(abs(kx) - abs(ky)), 1e-5),
+              "nelec/site - 0.875": (abs(res.nelec_imp
+                                         - 2 * DWAVE["filling"]), 1e-4)}
+    print("%s [%s]: kappa_x %.8f kappa_y %.8f" % (label, card, kx, ky))
+    bad = [k for k, (v, tol) in checks.items() if not v <= tol]
+    for k, (v, tol) in checks.items():
+        print("%s: %-24s %.3e (tol %.0e)" % (label, k, v, tol))
+    if not (res.converged and kx * ky < 0) or bad:
+        raise AssertionError("%s failed: converged %s, kx*ky %.3e, %s"
+                             % (label, res.converged, kx * ky, bad))
+
+
+def _doped_setup(device, size=DOPED["size"]):
+    import libdmet_preview_tpu_torch.dmet.hubbard as dmet
+    from libdmet_preview_tpu_torch.solvers import FCI
+    U, filling = DOPED["U"], DOPED["filling"]
+    Lat = dmet.SquareLattice(*size, *DOPED["imp"])
+    Lat.set_Ham(dmet.Ham(Lat, U), use_hcore_as_emb_ham=True, device=device)
+    vcor = dmet.AFInitGuess(DOPED["imp"], U, filling, rand=0.001,
+                            bogoliubov=True, bogo_res=True)
+    return Lat, vcor, FCI(restricted=True, ghf=True, tol=1e-10,
+                          device=device)
+
+
+def _doped_run(Lat, vcor, solver, max_iter, mu0=None, dmu0=0.0):
+    from libdmet_preview_tpu_torch.dmet.loop import run_dmet_sc
+    return run_dmet_sc(Lat, vcor, DOPED["filling"], solver=solver,
+                       max_iter=max_iter,
+                       mu0=DOPED["U"] * DOPED["filling"] if mu0 is None
+                       else mu0, dmu0=dmu0, thrnelec=1e-6,
+                       beta=DOPED["beta"], localize_bath="scdm",
+                       trace_start=3, conv_tol_vcor=5e-5)
+
+
+def replay_sc_iterations(history, device, n, size=DOPED["size"]):
+    """Each of the first n iterations of a doped run, run again on
+    `device` from the state that iteration started from (its vcor, mu0 and
+    dmu0); returns the records."""
+    Lat, vcor, solver = _doped_setup(device, size)
+    out = []
+    for h in history[:n]:
+        vcor.update(h["vcor_start"])
+        res = _doped_run(Lat, vcor, solver, 1, mu0=h["mu_start"],
+                         dmu0=h["dmu_start"])
+        out.append(dict(res.history[0], iter=h["iter"]))
+    return out
+
+
+def phase_doped(device, card, size=DOPED["size"]):
+    """10b: the doped spinless anchor at full width on the card, its first
+    iterations replayed on the CPU, and the idle share of one
+    iteration."""
+    from libdmet_preview_tpu_torch.utils import timer
+    label = "doped spinless SC-DMET SquareLattice(%d, %d, 2, 2) U=6" % size
+    card_run = device.type == "cuda"
+    if card_run:
+        torch.cuda.reset_peak_memory_stats(device)
+    Lat, vcor, solver = _doped_setup(device, size)
+    _sc_counts_reset(solver)
+    t0 = time.perf_counter()
+    with timer.recording() as sec:
+        res = _doped_run(Lat, vcor, solver, DOPED["max_iter"])
+    total = time.perf_counter() - t0
+    n_it = len(res.history)
+    peak = torch.cuda.max_memory_allocated(device) / 1e9 if card_run \
+        else float("nan")
+    print("%s [%s]: %d iterations in %.2f s (%.3f s per iteration), "
+          "converged %s, E/site %.12f (anchor %.12f), nelec/site %.10f, "
+          "peak device memory %.3f GB"
+          % (label, card, n_it, total, total / n_it, res.converged,
+             res.e_per_site, DOPED["anchor"], res.nelec_imp, peak))
+    _print_sc_run(label, card, res, sec, _sc_counts(solver, n_it))
+    t0 = time.perf_counter()
+    cpu_hist = replay_sc_iterations(res.history, torch.device("cpu"),
+                                    DOPED["compare"], size)
+    print("%s: %d iterations replayed on the CPU in %.1f s"
+          % (label, len(cpu_hist), time.perf_counter() - t0))
+    _compare_histories(label, res.history, cpu_hist,
+                        {"E": LOOP_TOL, "nelec": LOOP_TOL, "dmu": LOOP_TOL,
+                         "rho_imp": LOOP_TOL}, DOPED["compare"])
+
+    def one_iteration():
+        L1, v1, s1 = _doped_setup(device, size)
+        v1.update(res.history[-1]["vcor_start"])
+        _doped_run(L1, v1, s1, 1, mu0=res.history[-1]["mu_start"],
+                   dmu0=res.history[-1]["dmu_start"])
+
+    idle = _idle_share(one_iteration) if card_run else None
+    print("%s [%s]: idle share of the card over one iteration: %s"
+          % (label, card, "not measured (the profiler gave no device time)"
+             if idle is None else "%.4f" % idle))
+    bad = []
+    if not res.converged:
+        bad.append("not converged in %d iterations" % n_it)
+    if not abs(res.e_per_site - DOPED["anchor"]) < DOPED["tol"]:
+        bad.append("E/site %.12f" % res.e_per_site)
+    if not abs(res.nelec_imp - 2 * DOPED["filling"]) < 1e-4:
+        bad.append("nelec/site %.10f" % res.nelec_imp)
+    if bad:
+        raise AssertionError("%s failed: %s" % (label, bad))
+
+
+def run_gso_ib(Lat, device):
+    """10c: GSOHam(int_bath=True) -> GHartreeFock -> ConstructImpHam ->
+    get_H_dmet_ib on the folded mean-field GSO density, on `device` (the
+    lattice's); returns the results and the stage seconds."""
+    from libdmet_preview_tpu_torch.dmet import hubbard_gso as gso
+    from libdmet_preview_tpu_torch.ops import embham, spinless
+    from libdmet_preview_tpu_torch.utils import timer
+    with timer.recording() as sec:
+        with timer.stage("GSOHam (GV1 normal ordering)", device):
+            gham = gso.GSOHam(Lat, int_bath=True)
+        with timer.stage("GHartreeFock", device):
+            GRho, mu, res = gso.GHartreeFock(gham, AI_FILLING, mu0=0.0)
+        with timer.stage("ConstructImpHam", device):
+            ImpHam, _, basis = gso.ConstructImpHam(gham, GRho, mu,
+                                                   GRho_k=res["rho_k"])
+        with timer.stage("energy functional", device):
+            G = embham.foldRho_k(res["rho_k"], Lat.R2k_basis(basis))[0]
+            H0 = float(Lat.getH0()) + gham.GH0 + gham.GV0
+            Hs = spinless.get_H_dmet_ib(Lat, basis, gham.GH1_full_k,
+                                        gham.JK_core, ImpHam, H0)
+            h1, g = Hs.H1["cd"][0], Hs.H2["ccdd"][0]
+            E_mf = float(torch.einsum("pq, qp", h1, G)
+                         + 0.5 * (torch.einsum("pqrs, qp, sr", g, G, G)
+                                  - torch.einsum("pqrs, sp, qr", g, G, G))) \
+                + H0
+    return {"gham": gham, "mu": mu, "ImpHam": ImpHam, "basis": basis,
+            "E_mf": E_mf, "n_phys": res["nelec_phys"],
+            "H1 spectrum": torch.linalg.eigvalsh(ImpHam.H1["cd"][0]),
+            "JK_core spectrum": torch.linalg.eigvalsh(gham.JK_core)}, sec
+
+
+def phase_gso_abinitio(d, c, device, card):
+    """10c on phase 6's lattices (the card's and the CPU's): exactly one
+    symmetric syrk launch and no cross launch in ConstructImpHam, no
+    plain-version call on the card; the GSO ERI against the einsum of the
+    rotated species difference; the card against the CPU; the symmetric
+    kernel timed at the GSO shape.  Returns (launches, timing record,
+    max_abs_err of the kernel at that shape)."""
+    from libdmet_preview_tpu_torch.ops.eri_kernels import (syrk_df,
+                                                           syrk_df_plain)
+    from libdmet_preview_tpu_torch.ops.eri_transform import _rotate_chol
+    label = "abinitio GSO IB (%d cells x %d LOs, naux=%d)" % (
+        AI_NCELLS, AI_NLO, AI_NAUX)
+    _sync(device)
+    syrk_df.launches = 0
+    syrk_df.cross_launches = 0
+    torch.cuda.reset_peak_memory_stats(device)
+    with _counted_plain_calls() as plain_calls:
+        r, sec = run_gso_ib(d["Lat"], device)
+    _sync(device)
+    launches = {"syrk_df": syrk_df.launches,
+                "syrk_df_cross": syrk_df.cross_launches}
+    peak = torch.cuda.max_memory_allocated(device) / 1e9
+    neo = r["basis"].shape[-1]
+    print("%s [%s]: neo=%d, mu %.10f, physical electrons per cell %.10f, "
+          "E_mf %.10f; syrk_df launches %d, cross launches %d, plain-version "
+          "calls on CUDA tensors %d; peak device memory %.3f GB"
+          % (label, card, neo, r["mu"], r["n_phys"], r["E_mf"],
+             launches["syrk_df"], launches["syrk_df_cross"],
+             plain_calls["cuda"], peak))
+    for k, v in sec.items():
+        print("%s [%s]: stage %-32s %.6f s (%d call%s)"
+              % (label, card, k, sum(v), len(v), "" if len(v) == 1 else "s"))
+    # the GSO ERI against the einsum of the rotated species difference
+    g = r["ImpHam"].H2["ccdd"][0]
+    B = r["basis"][0]
+    nao = B.shape[1] // 2
+    L = d["Lat"].getH2()
+    Ld = _rotate_chol(L, B[:, :nao].reshape(-1, neo)) \
+        - _rotate_chol(L, B[:, nao:].reshape(-1, neo))
+    ref = torch.einsum("xij, xkl -> ijkl", Ld, Ld)
+    rel = float(torch.max(torch.abs(g - ref)) / torch.max(torch.abs(ref)))
+    del ref, Ld
+    M = g.reshape(neo * neo, neo * neo)
+    sym = torch.equal(M, M.T)
+    print("%s [%s]: GSO ERI vs einsum(Ld, Ld) rel %.3e (tol 1e-12), exactly "
+          "symmetric %s" % (label, card, rel, sym))
+    rc, sec_c = run_gso_ib(c["Lat"], torch.device("cpu"))
+    for k, v in sec_c.items():
+        print("%s [CPU]: stage %-32s %.6f s" % (label, k, sum(v)))
+    diffs = {"mu": abs(r["mu"] - rc["mu"]), "E_mf": abs(r["E_mf"] - rc["E_mf"])}
+    for k in ("H1 spectrum", "JK_core spectrum"):
+        diffs[k] = float(torch.max(torch.abs(r[k].cpu() - rc[k])))
+    Bd = r["basis"].reshape(-1, neo)
+    Bc = rc["basis"].reshape(-1, neo).to(device)
+    diffs["bath projector"] = float(torch.max(torch.abs(Bd @ Bd.T
+                                                        - Bc @ Bc.T)))
+    for k, v in diffs.items():
+        print("%s: cuda vs cpu %-18s %.3e (tol 1e-8)" % (label, k, v))
+    bad = [k for k, v in diffs.items() if not v <= 1e-8]
+    if not rel <= 1e-12 or not sym:
+        bad.append("GSO ERI vs einsum")
+    if launches != {"syrk_df": 1, "syrk_df_cross": 0} \
+            or plain_calls["cuda"] != 0 or neo != GSO_AI_SHAPE[1]:
+        bad.append("launches %s, plain calls %d, neo %d"
+                   % (launches, plain_calls["cuda"], neo))
+    if not np.isfinite(r["E_mf"]):
+        bad.append("non-finite E_mf")
+    del r, rc
+    # the symmetric kernel at the GSO shape against its plain version
+    naux, neo = GSO_AI_SHAPE
+    F = _packed_factors(naux, neo, seed=neo, device=device)
+    err = _check_kernel("syrk_df (naux=%d, neo=%d)" % (naux, neo),
+                        syrk_df(F), syrk_df_plain(F), symmetric=True)
+    ms = _time_ms(lambda: syrk_df(F))
+    plain_ms = _time_ms(lambda: syrk_df_plain(F))
+    npair = neo * (neo + 1) // 2
+    bound_ms, bound_by, flops = kernel_bound("tri", naux, npair)
+    print("syrk_df at the GSO shape (naux=%d, neo=%d, npair=%d) [%s]: %.4f "
+          "ms (%.2f TFLOP/s), cuBLAS F^T F %.4f ms, kernel/cuBLAS %.3f, "
+          "bound %.4f ms by %s (%.1f%% of bound)"
+          % (naux, neo, npair, card, ms, flops / ms / 1e9, plain_ms,
+             ms / plain_ms, bound_ms, bound_by, 100.0 * bound_ms / ms))
+    if bad:
+        raise AssertionError("%s failed: %s" % (label, bad))
+    return launches, {"shape": [naux, neo], "launches": launches["syrk_df"],
+                      "ms": ms, "plain_ms": plain_ms, "library_ms": plain_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by}, err
+
+
 def main():
     t_start = time.perf_counter()
     device, card = phase_device()
@@ -2246,6 +2607,8 @@ def main():
     launches_ai, run_d, run_c = phase_abinitio_uhf(device)
     with _quiet():
         launches_cc = phase_abinitio_ccsd(run_d, device, card)
+        launches_gso, at_gso, err_gso = phase_gso_abinitio(run_d, run_c,
+                                                           device, card)
         launches_csc = phase_abinitio_csc(run_d, run_c, device, card)
         del run_d, run_c
         hub2d = phase_dmet_loop_hubbard(device, card)
@@ -2257,7 +2620,9 @@ def main():
         phase_ib_fock(device, card)
         phase_nearest(device, card)
         phase_three_band(device, card)
-    max_abs["syrk_df"] = max(max_abs["syrk_df"], err_chol)
+        phase_dwave(device, card)
+        phase_doped(device, card)
+    max_abs["syrk_df"] = max(max_abs["syrk_df"], err_chol, err_gso)
     print("card: %s" % card)
     naux, neo = PATH_SHAPE
     npair = neo * (neo + 1) // 2
@@ -2268,12 +2633,14 @@ def main():
               "abinitio_uhf": launches_ai["syrk_df"],
               "abinitio_csc": launches_csc["syrk_df"],
               "abinitio_ccsd": launches_cc["syrk_df"],
-              "dmet_loop_cholesky": launches_chol}),
+              "dmet_loop_cholesky": launches_chol,
+              "abinitio_gso": launches_gso["syrk_df"]}),
             ("syrk_df_cross", "cross",
              "libdmet_preview_tpu/ops/pallas_eri.py:45",
              {"abinitio_uhf": launches_ai["syrk_df_cross"],
               "abinitio_csc": launches_csc["syrk_df_cross"],
-              "abinitio_ccsd": launches_cc["syrk_df_cross"]})]:
+              "abinitio_ccsd": launches_cc["syrk_df_cross"],
+              "abinitio_gso": launches_gso["syrk_df_cross"]})]:
         ms, plain_ms = times[(name, naux, neo)]
         bound_ms, bound_by, _ = kernel_bound(kind, naux, npair)
         print("%s at the path shape (naux=%d, neo=%d): kernel/cuBLAS %.3f, "
@@ -2299,6 +2666,8 @@ def main():
         "shape": [naux_c, neo_c], "launches": launches_chol,
         "ms": times_chol[0], "plain_ms": times_chol[1],
         "library_ms": times_chol[1], "bound_ms": bound_c, "bound_by": by_c}
+    # the symmetric kernel at the shape the ab initio GSO path gives it
+    kernels[0]["at_gso_shape"] = at_gso
     print("chip_smoke total: %.1f s [%s]"
           % (time.perf_counter() - t_start, card))
     print(json.dumps({"kernels": kernels}))

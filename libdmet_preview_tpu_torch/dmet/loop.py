@@ -7,11 +7,15 @@ run_dmet(lattice, vcor, config) executes:
   chemical-potential-fitted solver -> energy/density back-transform ->
   vcor fit (+ trace fix) -> DIIS, until vcor and energy converge.
 
+run_dmet_sc(lattice, vcor, filling) is the superconducting loop in the
+particle-hole transformed (GSO) frame: HFB mean field with a physical-mu
+fit, spinless bath and embedding, FCI(ghf=True) under a secant dmu fit,
+Bogoliubov vcor fit, damping and DIIS.
+
 Everything runs on the lattice's device (the one given to set_Ham, the
 card by default).  Each step is a utils.timer stage.  Returns a DmetResult
 with the converged energy per site, impurity density, vcor, mu, and the
-iteration history.  The superconducting loop (run_dmet_sc) is still to
-port.
+iteration history.
 """
 
 from dataclasses import dataclass, field
@@ -143,3 +147,92 @@ def run_dmet(lattice, vcor, config=None, solver=None, mu0=None):
     return DmetResult(conv, float(EnergyImp), float(nelecImp),
                       float(mu if mu is not None else 0.0), last_dmu,
                       vcor, rhoImp.cpu().numpy(), history)
+
+
+def run_dmet_sc(lattice, vcor, filling, solver=None, max_iter=20,
+                mu0=0.0, diis_start=3, diis_dim=4, conv_tol_E=1e-6,
+                conv_tol_vcor=1e-5, thrnelec=1e-7, fit_max_iter=200,
+                mixing=1.0, beta=np.inf, localize_bath=None,
+                trace_start=None, dmu0=0.0):
+    """One-call SUPERCONDUCTING (GSO-frame) DMET on the lattice's device:
+    HFB mean field with a physical-mu fit, spinless bath + embedding,
+    FCI(ghf=True) with a secant dmu fit (warm-started from the previous
+    iteration's dmu), Bogoliubov vcor fit, the mu-absorbable trace fix
+    from iteration trace_start on, damped update (mixing) and DIIS from
+    diis_start on.
+
+    vcor: a Bogoliubov vcor (e.g. hubbard_bcs.VcorSC) with [va, vb, D]
+    components; dmu0 starts the accumulated impurity dmu.  Returns a
+    DmetResult (rho_imp = GRho_imp, the anomalous block included); each
+    history record also holds the iteration's start ("vcor_start",
+    "mu_start", "dmu_start": what a run that begins with this iteration
+    takes as vcor, mu0 and dmu0), "mu", "dmu", the impurity GSO density
+    ("rho_imp") and the vcor parameters the iteration ended with
+    ("vcor_param")."""
+    from libdmet_preview_tpu_torch.dmet import hubbard_bcs as bcs
+    from libdmet_preview_tpu_torch.ops import spinless
+    from libdmet_preview_tpu_torch.ops.fit import keep_vcor_trace_fixed
+    from libdmet_preview_tpu_torch.solvers import FCI
+
+    device = lattice.device
+    if solver is None:
+        solver = FCI(restricted=True, ghf=True, tol=1e-10, device=device)
+    gham = bcs.GSOHam(lattice)
+    adiis = DIIS(space=diis_dim)
+    mu = mu0
+    last_dmu = dmu0
+    E_old = 0.0
+    history = []
+    conv = False
+    GRhoImp = Efrag = n = None
+    for it in range(max_iter):
+        start = {"vcor_start": np.array(vcor.param, copy=True),
+                 "mu_start": float(mu), "dmu_start": float(last_dmu)}
+        vmat = spinless.combine_vcor(np.asarray(vcor.get()))
+        with stage("mean field", device):
+            GRho, mu, res = bcs.GHartreeFock(gham, filling, mu0=mu,
+                                             vcor_mat=vmat, beta=beta)
+        ImpHam, _, basis = bcs.ConstructImpHam(gham, GRho, mu,
+                                               vcor_mat=vmat,
+                                               localize_bath=localize_bath)
+        with stage("impurity solves", device):
+            rdm, E_emb, ImpHam_d, dmu = bcs.SolveImpHam_with_fitting(
+                gham, filling, ImpHam, basis, solver, dmu0=last_dmu,
+                thrnelec=thrnelec)
+        last_dmu = dmu
+        with stage("energy", device):
+            GRhoImp, Efrag, n = bcs.transformResults(rdm, E_emb, basis,
+                                                     ImpHam_d, gham, mu,
+                                                     last_dmu=dmu)
+        with stage("vcor fit", device):
+            vcor_new, err = bcs.FitVcor(rdm, lattice, basis, vcor, gham, mu,
+                                        MaxIter=fit_max_iter)
+        if trace_start is not None and it >= trace_start:
+            # remove the mu-absorbable diagonal drift so that vcor and mu
+            # do not spiral together
+            vcor_new = keep_vcor_trace_fixed(vcor_new, vcor)
+        # damped update (mixing < 1 steadies oscillatory Bogoliubov fits,
+        # e.g. d-wave at repulsive U); DIIS on the damped sequence
+        p_next = (1.0 - mixing) * np.asarray(vcor.param) \
+            + mixing * np.asarray(vcor_new.param)
+        if it >= diis_start:
+            pvcor = adiis.update(p_next)
+        else:
+            pvcor = p_next
+        dVcor = float(np.linalg.norm(pvcor - vcor.param)
+                      / max(len(vcor.param), 1))
+        vcor.update(pvcor)
+        dE = float(Efrag - E_old)
+        E_old = float(Efrag)
+        history.append({"iter": it, "E": float(Efrag), "nelec": float(n),
+                        "dE": dE, "dVcor": dVcor, "fit_err": float(err),
+                        "mu": float(mu), "dmu": float(dmu),
+                        "rho_imp": GRhoImp.cpu().numpy(),
+                        "vcor_param": np.array(pvcor, copy=True), **start})
+        log.result("SC-DMET iter %2d  E = %14.8f  dE = %8.2e  "
+                   "dVcor = %8.2e", it, Efrag, dE, dVcor)
+        if dVcor < conv_tol_vcor and abs(dE) < conv_tol_E and it > 3:
+            conv = True
+            break
+    return DmetResult(conv, float(Efrag), float(n), float(mu), last_dmu,
+                      vcor, GRhoImp.cpu().numpy(), history)

@@ -78,10 +78,12 @@ def abinitio_lattice_from_numpy(kmesh, nscsites, hcore_R, fock_R, chol_L,
     return lat
 
 
-def vcor_local_from_numpy(restricted, nscsites, param):
-    """A port VcorLocal (non-Bogoliubov) holding the parameter vector
-    `param` of the JAX package's VcorLocal with the same layout."""
-    v = VcorLocal(restricted, False, nscsites)
+def vcor_local_from_numpy(restricted, nscsites, param, bogoliubov=False,
+                          bogo_res=False):
+    """A port VcorLocal holding the parameter vector `param` of the JAX
+    package's VcorLocal with the same layout (bogoliubov / bogo_res as
+    given there: the GSO path's Bogoliubov vcor, hubbard_bcs.VcorSC)."""
+    v = VcorLocal(restricted, bogoliubov, nscsites, bogo_res=bogo_res)
     param = np.asarray(param, dtype=float)
     if param.shape != (v.length(),):
         raise ValueError("vcor param shape %s, expected (%d,)"

@@ -1,8 +1,9 @@
 """
 Embedding-ERI transforms from Cholesky / density-fitting factors (PyTorch
 port of libdmet_preview_tpu/ops/eri_transform.py: cholesky_eri,
-_rotate_chol, get_emb_eri_chol, get_emb_eri_mol, make_gdf_factors,
-get_emb_eri_gdf and the dispatcher get_emb_eri).
+_rotate_chol, get_emb_eri_chol, get_emb_eri_gso_chol, get_emb_eri_mol,
+make_gdf_factors, get_emb_eri_gdf, get_emb_eri_gso_gdf and the dispatcher
+get_emb_eri).
 
     L_emb[x, i, j] = C[p, i] L[x, p, q] C[q, j]       (LO -> EO rotation)
     eri[s]         = sum_x La[x, ij] Lb[x, kl]         (DF syrk)
@@ -13,6 +14,9 @@ hand-written Hopper kernels (the symmetric one for the aa and bb blocks,
 the cross one for ab), on CPU tensors their plain versions.  Each piece is
 a utils.timer stage.  The JAX package's size rule for
 choosing its Pallas kernel and its HDF5 `outcore` mode are not ported.
+The GSO ERI (the particle-hole transformed spinless interaction) is one
+symmetric syrk of the packed species difference La - Lb: on CUDA the
+hand-written kernel, where the JAX package runs a plain einsum.
 
 The k-resolved GDF path works on complex128 tensors: per momentum transfer
 q the factors F_q rotate into the embedding basis with momentum
@@ -94,6 +98,41 @@ def get_emb_eri_chol(L, basis):
         with stage("ERI unpack", dev):
             unpack_s4(s4, neo, out=out[m])
     return out
+
+
+def get_emb_eri_gso_chol(L, basis):
+    """GSO (particle-hole transformed) embedding ERI from Cholesky / DF
+    factors.  The transformed two-body [aa: +g, bb: +g, ab: -g] of one
+    spatial ERI g = sum_x L_x (x) L_x factorizes exactly:
+
+        g_gso = sum_x (La_x - Lb_x) (x) (La_x - Lb_x)
+
+    with La / Lb the factors rotated by the a / b species blocks of the GSO
+    embedding basis: the two rotations, one subtraction, and one launch of
+    the symmetric DF syrk on the s4-packed difference (on CUDA the
+    hand-written kernel, on the CPU its plain version).
+
+    L: (naux, nsites, nsites) float64 tensor in the (LO, full-lattice)
+    site basis of one species; basis: ((1,) ncells, nso, neo) GSO basis,
+    tensor or array, rows [:nao] = a species, [nao:] = b species per cell.
+    Returns the (neo,)*4 chemist tensor on L's device."""
+    dev = L.device
+    basis = as_f64(basis, dev)
+    if basis.ndim == 4:
+        basis = basis[0]
+    ncells, nso, neo = basis.shape
+    nao = nso // 2
+    Ca = basis[:, :nao, :].reshape(ncells * nao, neo)
+    Cb = basis[:, nao:, :].reshape(ncells * nao, neo)
+    with stage("ERI rotation", dev):
+        Ld = _rotate_chol(L, Ca) - _rotate_chol(L, Cb)
+    with stage("ERI pack", dev):
+        F = pack_tril(Ld)
+    del Ld
+    with stage("syrk (tri kernel)", dev):
+        s4 = syrk_df(F)
+    with stage("ERI unpack", dev):
+        return unpack_s4(s4, neo)
 
 
 def get_emb_eri_mol(eri_full, basis):
@@ -235,6 +274,53 @@ def get_emb_eri_gdf(factors, basis_k, ncells, nlo, tr_symm=False,
             H = H.reshape(-1, neo * neo)
             eri += torch.cat([G.real, G.imag]).T @ torch.cat([H.real, H.imag])
     return eri.reshape((1,) + (neo,) * 4) / ncells ** 2
+
+
+def get_emb_eri_gso_gdf(factors, basis_k, ncells, nao, tr_symm=False,
+                        device=torch.device("cuda")):
+    """GSO (particle-hole transformed) embedding ERI from k-resolved GDF
+    factors, on `device`.  With La / Lb the factors rotated by the a / b
+    species blocks of the GSO basis, g_gso = sum_x (La - Lb) (x)
+    (La - Lb)^*: the rotated factors G and H of get_emb_eri_gdf are taken
+    as the species differences, with the same momentum conservation on
+    the flattened k index (a 1D cyclic mesh).
+
+    factors: {q: (F_re, F_im)} from make_gdf_factors over nao spatial LOs,
+    arrays or tensors; basis_k: (re, im) pair (1, nk, 2*nao, neo) GSO
+    basis, rows [:nao] = a species, [nao:] = b species per cell.
+    Returns the real (neo, neo, neo, neo) chemist GSO embedding ERI
+    tensor on `device`."""
+    device = torch.device(device)
+    C = torch.complex(as_f64(basis_k[0], device)[0],
+                      as_f64(basis_k[1], device)[0])
+    Cs = (C[:, :nao, :], C[:, nao:, :])
+    neo = C.shape[-1]
+    if tr_symm:
+        items = [(q, 2.0 if (ncells - q) % ncells != q else 1.0)
+                 for q in factors if q <= (ncells - q) % ncells]
+    else:
+        items = [(q, 1.0) for q in factors]
+    k = torch.arange(ncells, device=device)
+    eri = torch.zeros((neo * neo, neo * neo), dtype=torch.float64,
+                      device=device)
+    for qs, ws, F in _q_groups(factors, items, device):
+        qv = torch.as_tensor(qs, device=device)
+        G = H = 0.0
+        with stage("GDF rotation", device):
+            for sign, Cx in zip((1.0, -1.0), Cs):
+                Cq = Cx[(k[None, :] + qv[:, None]) % ncells]    # C(k + q)
+                Cc = Cx.conj()
+                G = G + sign * torch.einsum("qkpax, kpi, qkaj -> qxij", F,
+                                            Cc, Cq)
+                H = H + sign * torch.einsum("qksrx, qkrm, ksl -> qxml", F,
+                                            Cq, Cc)
+        with stage("GDF contraction", device):
+            wv = torch.as_tensor(ws, dtype=torch.float64,
+                                 device=device)[:, None, None, None]
+            G = (G * wv).reshape(-1, neo * neo)
+            H = H.reshape(-1, neo * neo)
+            eri += torch.cat([G.real, G.imag]).T @ torch.cat([H.real, H.imag])
+    return eri.reshape((neo,) * 4) / ncells ** 2
 
 
 def get_emb_eri(source, basis, df_type=None, device=torch.device("cuda"),

@@ -67,17 +67,24 @@ def R2k(A, kmesh):
 
 
 def k2R(A, kmesh, real=True):
-    """k -> stripe R.  A is a (re, im) pair (or real array); returns the
-    real stripe if real=True, else the (re, im) pair."""
-    cos_t, sin_t = dft_tables(tuple(int(x) for x in kmesh))
+    """k -> stripe R.  A is a (re, im) pair (or real array) of arrays or
+    of tensors; returns the real stripe if real=True, else the (re, im)
+    pair, tensors on A's device for tensor input."""
+    if _is_tensor(A):
+        A_re, A_im = _pair_t(A)
+        cos_t, sin_t = _tables_t(kmesh, A_re)
+        ein = torch.einsum
+    else:
+        A_re, A_im = _pair(A)
+        cos_t, sin_t = dft_tables(tuple(int(x) for x in kmesh))
+        ein = np.einsum
     nk = cos_t.shape[0]
-    A_re, A_im = _pair(A)
-    re = (np.einsum("kR, ...kij -> ...Rij", cos_t, A_re)
-          - np.einsum("kR, ...kij -> ...Rij", sin_t, A_im)) / nk
+    re = (ein("kR, ...kij -> ...Rij", cos_t, A_re)
+          - ein("kR, ...kij -> ...Rij", sin_t, A_im)) / nk
     if real:
         return re
-    im = (np.einsum("kR, ...kij -> ...Rij", cos_t, A_im)
-          + np.einsum("kR, ...kij -> ...Rij", sin_t, A_re)) / nk
+    im = (ein("kR, ...kij -> ...Rij", cos_t, A_im)
+          + ein("kR, ...kij -> ...Rij", sin_t, A_re)) / nk
     return re, im
 
 

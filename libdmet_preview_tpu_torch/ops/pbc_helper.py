@@ -1,9 +1,9 @@
 """
 J and K matrices for lattice Hamiltonians (PyTorch port of
 libdmet_preview_tpu/ops/pbc_helper.py: get_jk_local, get_jk_nearest,
-get_jk_full_bruteforce and the k-resolved functions eri_R_to_eri_7d,
-get_jk_from_eri_7d, get_jk_from_gdf, eri_to_gdf; the GHF version belongs to
-the GSO slice).
+get_jk_full_bruteforce, the k-resolved functions eri_R_to_eri_7d,
+get_jk_from_eri_7d, get_jk_from_gdf, eri_to_gdf, and the generalized-spin
+get_jk_ghf).
 
 The k-resolved functions work on complex128 tensors on `device`.  They
 do momentum algebra on the flattened k index ((k + q) % nk), which is the
@@ -163,6 +163,33 @@ def get_jk_from_gdf(factors, dm_k, device=torch.device("cuda")):
         dmq = dmc[:, (k[None, :] + qv[:, None]) % nk]    # (t, q, k, r, a)
         g = torch.einsum("qkpax, tqkra -> tqkprx", F, dmq)
         vk += torch.einsum("tqkprx, qksrx -> tkps", g, F.conj())
+    return vj, vk
+
+
+def get_jk_ghf(eri_blocks, dm_so, device=torch.device("cuda")):
+    """Generalized (GHF) J and K on a 2n x 2n generalized density from
+    spin-blocked chemist ERIs (g_aa, g_bb, g_ab), on `device`: the Coulomb
+    is spin-diagonal; the exchange acts on every sector, the off-diagonal
+    spin blocks included:
+
+      K_ab[p,s] = sum_{l k} (p_a l_a | k_b s_b) D[k_b, l_a].
+
+    Arrays or tensors in; returns the (vj, vk) tensors (2n, 2n)."""
+    device = torch.device(device)
+    g_aa, g_bb, g_ab = (as_f64(x, device) for x in eri_blocks)
+    dm = as_f64(dm_so, device)
+    n = g_aa.shape[0]
+    daa, dba, dbb = dm[:n, :n], dm[n:, :n], dm[n:, n:]
+    vj = torch.zeros_like(dm)
+    vj[:n, :n] = torch.einsum("pqrs, rs -> pq", g_aa, daa) \
+        + torch.einsum("pqrs, rs -> pq", g_ab, dbb)
+    vj[n:, n:] = torch.einsum("pqrs, rs -> pq", g_bb, dbb) \
+        + torch.einsum("rspq, rs -> pq", g_ab, daa)
+    vk = torch.zeros_like(dm)
+    vk[:n, :n] = torch.einsum("pqrs, rq -> ps", g_aa, daa)
+    vk[n:, n:] = torch.einsum("pqrs, rq -> ps", g_bb, dbb)
+    vk[:n, n:] = torch.einsum("plks, kl -> ps", g_ab, dba)
+    vk[n:, :n] = vk[:n, n:].T          # Hermitian D -> Hermitian K
     return vj, vk
 
 

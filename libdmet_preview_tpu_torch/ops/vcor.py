@@ -1,7 +1,6 @@
 """
 Correlation-potential (vcor) parametrizations (PyTorch port of
-libdmet_preview_tpu/ops/vcor.py; the Bogoliubov symmetric classes belong
-to the GSO/BCS slice).
+libdmet_preview_tpu/ops/vcor.py, the Bogoliubov families included).
 
 One Vcor class driven by static index/coefficient tables:
 
@@ -17,9 +16,6 @@ import numpy as np
 
 from libdmet_preview_tpu_torch.utils import logger as log
 from libdmet_preview_tpu_torch.utils.misc import triu_diag_indices
-
-_BOGO_MSG = ("%s(bogoliubov=True) is not ported yet: it belongs to the "
-             "GSO/BCS slice (Slice 4)")
 
 
 class Vcor(object):
@@ -123,11 +119,14 @@ class VcorNonLocal(object):
     R != 0 blocks enter as V(R) on <0|V|R> with V(-R) = V(R)^T imposed, so
     that the lattice operator is Hermitian and V(k) = sum_R e^{-ikR} V(R)
     is Hermitian per k.  -R comes from the lattice's cell-index algebra
-    (the JAX package's (-R) % ncells is that cell on a 1D mesh only)."""
+    (the JAX package's (-R) % ncells is that cell on a 1D mesh only).
+
+    There is no non-local Bogoliubov vcor: bogoliubov=True fails the same
+    assertion as in the JAX package (a pairing potential goes through the
+    GSO frame, ops/spinless.py, with a local Bogoliubov vcor)."""
 
     def __init__(self, restricted, bogoliubov, lattice, rcells=None):
-        if bogoliubov:
-            raise NotImplementedError(_BOGO_MSG % "VcorNonLocal")
+        assert not bogoliubov, "nonlocal Bogoliubov vcor: use the GSO path"
         self.restricted = restricted
         self.bogoliubov = bogoliubov
         self.local = False
@@ -328,9 +327,9 @@ def VcorRestricted(restricted, bogoliubov, active_sites, core_sites,
 
     Parameter layout: the active upper-triangle pairs first (doubled for
     unrestricted: alpha block then beta), then the core diagonals (doubled
-    for unrestricted)."""
-    if bogoliubov:
-        raise NotImplementedError(_BOGO_MSG % "VcorRestricted")
+    for unrestricted), then, with bogoliubov, the pairing parameters of the
+    active block (none on the core sites): its upper triangle (restricted
+    or bogo_res) or its full square."""
     active_sites = list(active_sites)
     core_sites = list(core_sites)
     nact, ncor = len(active_sites), len(core_sites)
@@ -359,8 +358,20 @@ def VcorRestricted(restricted, bogoliubov, active_sites, core_sites,
             ent.add(nV0 + ncor + idx, 1, i, i, 1.0)
         diag_idx = [np.concatenate([d, np.arange(nV0, nV0 + ncor)]),
                     np.concatenate([d + npair, np.arange(nV0 + ncor, nV)])]
-    return Vcor(nV, 2, nscsites, ent.cols, diag_idx=diag_idx,
-                restricted=restricted, bogoliubov=False,
+    nD = 0
+    if bogoliubov:
+        if restricted or bogo_res:
+            nD = npair
+            for idx, (i, j) in enumerate(pairs):
+                ent.add_sym(nV + idx, 2, i, j, 1.0)
+        else:
+            prod = list(it.product(active_sites, repeat=2))
+            nD = len(prod)
+            for idx, (i, j) in enumerate(prod):
+                ent.add(nV + idx, 2, i, j, 1.0)
+    return Vcor(nV + nD, 3 if bogoliubov else 2, nscsites, ent.cols,
+                diag_idx=diag_idx, restricted=restricted,
+                bogoliubov=bogoliubov,
                 idx_range=sorted(active_sites + core_sites))
 
 
@@ -380,17 +391,36 @@ def VcorSymm(restricted, bogoliubov, nscsites, perms, spin_swap=None,
 
     perms: list of length-nscsites index arrays (site i -> perm[i]);
     spin_swap: optional bools per perm, True where the operation also
-    exchanges alpha and beta (AFM-type symmetry)."""
+    exchanges alpha and beta (AFM-type symmetry).
+
+    bogoliubov=True delegates to VcorSymmBogo (normal orbits + singlet
+    pairing orbits)."""
     if bogoliubov:
-        raise NotImplementedError(_BOGO_MSG % "VcorSymm")
+        return VcorSymmBogo(restricted, nscsites, perms,
+                            spin_swap=spin_swap, idx_range=idx_range)
     if idx_range is None:
         idx_range = list(range(nscsites))
     perms = [np.asarray(p, dtype=int) for p in perms]
     if spin_swap is None:
         spin_swap = [False] * len(perms)
-    spin = 1 if restricted else 2
+    orbits = _normal_orbits(idx_range, perms, spin_swap,
+                            1 if restricted else 2)
 
-    # orbits of symmetric pairs (s, i, j) with i <= j
+    ent = _Entries()
+    for pidx, orbit in enumerate(orbits):
+        for (s, i, j) in orbit:
+            for ss in ((0, 1) if restricted else (s,)):
+                ent.add_sym(pidx, ss, i, j, 1.0)
+    diag = [np.asarray([p for p, orb in enumerate(orbits)
+                        if any(i == j for (_, i, j) in orb)])]
+    return Vcor(len(orbits), 2, nscsites, ent.cols, diag_idx=diag,
+                restricted=restricted, bogoliubov=False,
+                idx_range=idx_range)
+
+
+def _normal_orbits(idx_range, perms, spin_swap, spin):
+    """Orbits of the symmetric pairs (s, i, j), i <= j, under the site
+    permutations (the spin_swap ones also exchange the spins)."""
     seen = {}
     orbits = []
     for s in range(spin):
@@ -412,17 +442,7 @@ def VcorSymm(restricted, bogoliubov, nscsites, perms, spin_swap=None,
                 for kk in orbit:
                     seen[kk] = len(orbits)
                 orbits.append(sorted(orbit))
-
-    ent = _Entries()
-    for pidx, orbit in enumerate(orbits):
-        for (s, i, j) in orbit:
-            for ss in ((0, 1) if restricted else (s,)):
-                ent.add_sym(pidx, ss, i, j, 1.0)
-    diag = [np.asarray([p for p, orb in enumerate(orbits)
-                        if any(i == j for (_, i, j) in orb)])]
-    return Vcor(len(orbits), 2, nscsites, ent.cols, diag_idx=diag,
-                restricted=restricted, bogoliubov=False,
-                idx_range=idx_range)
+    return orbits
 
 
 def _with_diag_shift(v, U):
@@ -438,9 +458,8 @@ def _with_diag_shift(v, U):
 def VcorLocalPhSymm(U, bogoliubov, ImpSize, subA, subB, r=None):
     """Particle-hole symmetric vcor for the bipartite half-filled Hubbard
     model: VA_ij + (-)^{i+j} VB_ij = 0, with a fixed U/2 diagonal shift
-    folded into evaluate()."""
-    if bogoliubov:
-        raise NotImplementedError(_BOGO_MSG % "VcorLocalPhSymm")
+    folded into evaluate().  bogoliubov=True appends one pairing
+    parameter per pair: D_ij = p, D_ji = (-)^{i+j} p."""
     subA, subB = set(subA), set(subB)
     nscsites = int(np.prod(ImpSize))
     log.eassert(subA | subB == set(range(nscsites)),
@@ -454,13 +473,18 @@ def VcorLocalPhSymm(U, bogoliubov, ImpSize, subA, subB, r=None):
             if np.linalg.norm(np.asarray(ri) - np.asarray(rj)) < r + 1e-6:
                 pairs.append((i, j))
 
+    nV = len(pairs)
     ent = _Entries()
     for idx, (i, j) in enumerate(pairs):
         sign = 1.0 if (i in subA) == (j in subA) else -1.0
         ent.add_sym(idx, 0, i, j, 1.0)
         ent.add_sym(idx, 1, i, j, -sign)
-    v = Vcor(len(pairs), 2, nscsites, ent.cols, restricted=False,
-             bogoliubov=False)
+        if bogoliubov:
+            ent.add(idx + nV, 2, i, j, 1.0)
+            if i != j:
+                ent.add(idx + nV, 2, j, i, sign)
+    v = Vcor(2 * nV if bogoliubov else nV, 3 if bogoliubov else 2,
+             nscsites, ent.cols, restricted=False, bogoliubov=bogoliubov)
     return _with_diag_shift(v, U)
 
 
@@ -517,4 +541,50 @@ def VcorDCAPhSymm(U, ImpSize, subA, subB):
 
 def VcorSymmBogo(restricted, nscsites, perms, spin_swap=None,
                  idx_range=None):
-    raise NotImplementedError(_BOGO_MSG % "VcorSymmBogo")
+    """Point-group symmetric Bogoliubov vcor: the normal blocks (va, vb)
+    follow VcorSymm's orbits; the pairing block D (symmetric, singlet) gets
+    one parameter per orbit of (i, j) pairs under the site permutations.
+    spin_swap operations exchange va <-> vb and leave the symmetric D
+    invariant."""
+    if idx_range is None:
+        idx_range = list(range(nscsites))
+    perms = [np.asarray(p, dtype=int) for p in perms]
+    if spin_swap is None:
+        spin_swap = [False] * len(perms)
+    orbits = _normal_orbits(idx_range, perms, spin_swap,
+                            1 if restricted else 2)
+    nV = len(orbits)
+
+    # pairing orbits over unordered (i, j); spin_swap: D -> D^T == D
+    seen_d = {}
+    orbits_d = []
+    for i in idx_range:
+        for j in idx_range:
+            if j < i or (i, j) in seen_d:
+                continue
+            orbit = set()
+            stack = [(i, j)]
+            while stack:
+                (ii, jj) = stack.pop()
+                kk = (min(ii, jj), max(ii, jj))
+                if kk in orbit:
+                    continue
+                orbit.add(kk)
+                for P in perms:
+                    stack.append((int(P[ii]), int(P[jj])))
+            for kk in orbit:
+                seen_d[kk] = len(orbits_d)
+            orbits_d.append(sorted(orbit))
+
+    ent = _Entries()
+    for pidx, orbit in enumerate(orbits):
+        for (s, i, j) in orbit:
+            for ss in ((0, 1) if restricted else (s,)):
+                ent.add_sym(pidx, ss, i, j, 1.0)
+    for pidx, orbit in enumerate(orbits_d):
+        for (i, j) in orbit:
+            ent.add_sym(nV + pidx, 2, i, j, 1.0)
+    diag = [np.asarray([p for p, orb in enumerate(orbits)
+                        if any(i == j for (_, i, j) in orb)])]
+    return Vcor(nV + len(orbits_d), 3, nscsites, ent.cols, diag_idx=diag,
+                restricted=restricted, bogoliubov=True, idx_range=idx_range)

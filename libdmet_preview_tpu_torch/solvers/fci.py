@@ -22,8 +22,10 @@ contraction in the middle):
   * rdm1/rdm2 are single GEMMs over the same t1 tensors.
 
 Solver contract as in the JAX package: run -> (rdm1, E), run_dmet_ham,
-onepdm/twopdm, cleanup.  The generalized-spin-orbital branch (ghf=True)
-belongs to the superconducting slice and raises.
+onepdm/twopdm, cleanup.  ghf=True is the generalized-spin-orbital
+(spinless) solver of the GSO frame: one fermion species over all norb
+orbitals, nelec = (n, 0), so the beta string space holds the single empty
+string (no links; the sigma, hdiag and rdm builds take it as it is).
 """
 
 from functools import lru_cache
@@ -184,12 +186,13 @@ def _sigma_rhf(h2e, ci, links_a, links_b, norb):
     na, nb = ci.shape
     nn = norb * norb
     t1 = _apply_links(ci, links_a, norb)
-    t1b = _apply_links(ci.T, links_b, norb)
-    t1 = t1 + t1b.transpose(1, 2)
+    if links_b.I.numel():      # no beta links: the single empty string
+        t1 = t1 + _apply_links(ci.T, links_b, norb).transpose(1, 2)
     g = (h2e.reshape(nn, nn) @ t1.reshape(nn, na * nb)).reshape(nn, na, nb)
     sigma = _apply_links_T(g, links_a, norb)
-    sigma_b = _apply_links_T(g.transpose(1, 2), links_b, norb)
-    return sigma + sigma_b.T
+    if links_b.I.numel():
+        sigma = sigma + _apply_links_T(g.transpose(1, 2), links_b, norb).T
+    return sigma
 
 
 def _sigma_uhf(h2e_aa, h2e_ab, h2e_bb, ci, links_a, links_b, norb):
@@ -555,10 +558,6 @@ class FCI(object):
 
     def __init__(self, restricted=False, Sz=0, tol=1e-11, max_cycle=200,
                  ghf=False, device=torch.device("cuda"), **kwargs):
-        if ghf:
-            raise NotImplementedError(
-                "FCI(ghf=True): the generalized-spin-orbital solver comes "
-                "with the superconducting (GSO/BCS) slice (Slice 4)")
         self.restricted = restricted
         self.Sz = Sz
         self.ghf = ghf
@@ -590,6 +589,11 @@ class FCI(object):
         norb = Ham.norb
         if nelec is None:
             raise ValueError("FCI.run requires nelec")
+        if self.ghf:
+            # spinless / generalized-spin-orbital FCI: a single fermion
+            # species over all norb orbitals; nelec counts transformed
+            # particles
+            return self._run_ghf(Ham, nelec, calc_rdm2=calc_rdm2)
         nelec_a = (nelec + self.Sz) // 2
         nelec_b = (nelec - self.Sz) // 2
         assert nelec_a >= 0 and nelec_b >= 0 and nelec_a + nelec_b == nelec
@@ -619,9 +623,35 @@ class FCI(object):
         self.optimized = True
         return self.onepdm, E
 
+    def _run_ghf(self, Ham, nelec, calc_rdm2=False):
+        norb = Ham.norb
+        self.nelec = (nelec, 0)
+        self.norb = norb
+        h1 = as_f64(Ham.H1["cd"][0], self.device)
+        h2 = _s1(Ham.H2["ccdd"][0], norb, self.device)
+        shape = (num_strings(norb, nelec), 1)
+        ci0 = self.ci if (self.ci is not None
+                          and tuple(self.ci.shape) == shape) else None
+        counter = {"sigma": 0}
+        E, self.ci = fci_kernel(h1, h2, norb, self.nelec,
+                                ecore=float(Ham.H0), tol=self.conv_tol,
+                                ci0=ci0, max_cycle=self.max_cycle,
+                                device=self.device, counter=counter)
+        self.n_run += 1
+        self.n_sigma += counter["sigma"]
+        ga, _ = make_rdm1s(self.ci, norb, self.nelec)
+        self.onepdm = ga[None]
+        if calc_rdm2:
+            self.make_rdm2(Ham)
+        self.E = E
+        self.optimized = True
+        return self.onepdm, E
+
     def make_rdm2(self, Ham):
         Gaa, Gbb, Gab = make_rdm2s(self.ci, self.norb, self.nelec)
-        if Ham.restricted:
+        if self.ghf:
+            self.twopdm = Gaa[None]
+        elif Ham.restricted:
             self.twopdm = (Gaa + Gbb + Gab + Gab.permute(2, 3, 0, 1))[None]
         else:
             self.twopdm = torch.stack([Gaa, Gbb, Gab])
@@ -635,7 +665,11 @@ class FCI(object):
         norb = Ham.norb
         H1 = as_f64(Ham.H1["cd"], self.device)
         H2 = Ham.H2["ccdd"]
-        if Ham.restricted:
+        if self.ghf:
+            h2 = _s1(H2[0], norb, self.device)
+            E1 = torch.sum(H1[0] * r1[0].T)
+            E2 = torch.sum(h2 * r2[0]) * 0.5
+        elif Ham.restricted:
             h2 = _s1(H2[0], norb, self.device)
             E1 = torch.sum(H1[0] * r1[0].T) * 2.0
             E2 = torch.sum(h2 * r2[0]) * 0.5

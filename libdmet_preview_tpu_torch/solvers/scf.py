@@ -1,7 +1,8 @@
 """
 Embedded mean field on an `Integral` (PyTorch port of
 libdmet_preview_tpu/solvers/scf.py: _veff_uhf, _eigh_gen, SCF.HF,
-SCFSolver, ao2mo_Ham, restore_Ham).
+SCFSolver, ao2mo_Ham, restore_Ham, and the GSO mean field _veff_ghf,
+GGHF, separate_basis, GGHF_mu).
 
 The Fock builds (J/K from the spin-blocked embedding ERIs, n^4 work) run on
 the solver's device; the tiny n x n steps around them (generalized eigh,
@@ -436,3 +437,165 @@ def restore_Ham(Ham_mo, C, ovlp=None, device=torch.device("cuda")):
     n = C.shape[-2]
     S = np.eye(n) if ovlp is None else _host(ovlp)
     return ao2mo_Ham(Ham_mo, np.swapaxes(S @ C, -1, -2), device=device)
+
+
+# ----------------------------------------------------------------------
+# GSO (generalized spin-orbital) mean field
+# ----------------------------------------------------------------------
+
+def _veff_ghf(dm, eri):
+    """Single-species (generalized spin-orbital) veff: J - K with full
+    exchange; tensors on one device."""
+    vj = torch.einsum("pqrs, sr -> pq", eri, dm)
+    vk = torch.einsum("psrq, sr -> pq", eri, dm)
+    return vj - vk
+
+
+def _ghf_eri(Ham, device):
+    return _s1_block(Ham.H2["ccdd"][0], Ham.norb, device)
+
+
+def _aufbau(F, nelec):
+    """(rho, C, mo_energy) of the nelec lowest levels of the host F."""
+    ew, ev = np.linalg.eigh(F)
+    return ev[:, :nelec] @ ev[:, :nelec].T, ev, ew
+
+
+def GGHF(Ham, nelec, dm0=None, tol=1e-11, max_cycle=200, diis_dim=8,
+         v_ext=None, device=torch.device("cuda")):
+    """Generalized HF on a dense spin-orbital Integral: one fermion species
+    over all norb spin orbitals, F = h + J(rho) - K(rho), aufbau occupation
+    of nelec orbitals, Pulay DIIS on the Fock commutator.  The J - K
+    builds run on `device`, the n x n steps on the host.
+
+    v_ext: optional static one-body addition (e.g. a fitted -mu*Na+mu*Nb).
+    Returns (E, rho, C, mo_energy) with host arrays; E includes Ham.H0 and
+    the v_ext one-body contribution."""
+    device = torch.device(device)
+    n = Ham.norb
+    h1 = _host(Ham.H1["cd"][0])
+    if v_ext is not None:
+        h1 = h1 + _host(v_ext)
+    g = _ghf_eri(Ham, device)
+
+    def veff(rho):
+        return _veff_ghf(as_f64(rho, device), g).cpu().numpy()
+
+    if dm0 is None:
+        rho = _aufbau(h1, nelec)[0]
+    else:
+        rho = _host(dm0)
+    diis = DIIS(space=diis_dim)
+    E_old = np.inf
+    for it in range(max_cycle):
+        F = h1 + veff(rho)
+        err = F @ rho - rho @ F
+        if np.abs(err).max() < 1.0:
+            F = diis.update(F.ravel(), xerr=err.ravel()).reshape(n, n)
+        rho, ev, ew = _aufbau(F, nelec)
+        E = float(np.sum(h1 * rho) + 0.5 * np.sum(veff(rho) * rho))
+        if abs(E - E_old) < tol and np.abs(err).max() < np.sqrt(tol):
+            E_old = E
+            break
+        E_old = E
+    return E_old + float(Ham.H0), rho, ev, ew
+
+
+def separate_basis(basis):
+    """Split a GSO embedding basis (ncells, nso, neo) into the particle
+    (alpha-LO) and hole (beta-LO) row blocks."""
+    nao = basis.shape[-2] // 2
+    return basis[..., :nao, :], basis[..., nao:, :]
+
+
+def GGHF_mu(Ham, nelec, nelec_target, mu0=0.0, basis=None, dm0=None,
+            tol=1e-11, tol_nelec=1e-8, max_cycle=200, mu_bracket=2.0,
+            device=torch.device("cuda")):
+    """GSO HF with in-loop chemical-potential fitting: the determinant
+    holds a FIXED number of transformed particles (nelec spin orbitals
+    occupied) while the physical electron count
+
+        n_phys(rho) = tr_a(rho_LO) - tr_b(rho_LO) + nao * ncells
+
+    is driven to nelec_target by a monotone bisection over mu at every SCF
+    step, with v_mu = (-mu on particle rows, +mu on hole rows) transformed
+    to the embedding basis.  The J - K builds run on `device`, the n x n
+    eighs of the bisection on the host.
+
+    basis: GSO embedding basis (ncells, nso, neo), array or tensor; when
+    None, the Hamiltonian orbitals are themselves the particle / hole
+    blocks.  Returns (E, rho, C, mo_energy, mu) with host arrays."""
+    device = torch.device(device)
+    n = Ham.norb
+    h1 = _host(Ham.H1["cd"][0])
+    g = _ghf_eri(Ham, device)
+
+    def veff(rho):
+        return _veff_ghf(as_f64(rho, device), g).cpu().numpy()
+
+    if basis is None:
+        nao = n // 2
+        Na = np.diag(np.r_[np.ones(nao), np.zeros(n - nao)])
+        Nb = np.diag(np.r_[np.zeros(nao), np.ones(n - nao)])
+        n_offset = float(nao)
+    else:
+        Ra, Rb = separate_basis(_host(basis))
+        ncells, nao = Ra.shape[0], Ra.shape[1]
+        Na = np.einsum("rap, raq -> pq", Ra, Ra)
+        Nb = np.einsum("rap, raq -> pq", Rb, Rb)
+        n_offset = float(nao * ncells)
+    v_unit = -Na + Nb                      # dv/dmu
+
+    def n_phys(rho):
+        return float(np.sum(rho * Na) - np.sum(rho * Nb)) + n_offset
+
+    def fit_mu(F, mu_guess):
+        """Monotone bisection: n_phys of the aufbau density of
+        F + mu*v_unit is non-decreasing in mu."""
+        def n_of(mu):
+            return n_phys(_aufbau(F + mu * v_unit, nelec)[0])
+        lo, hi = mu_guess - mu_bracket, mu_guess + mu_bracket
+        k = 0
+        while n_of(lo) > nelec_target and k < 30:
+            lo -= mu_bracket * 2
+            k += 1
+        k = 0
+        while n_of(hi) < nelec_target and k < 30:
+            hi += mu_bracket * 2
+            k += 1
+        mu = mu_guess
+        for _ in range(100):
+            mu = 0.5 * (lo + hi)
+            nm = n_of(mu)
+            if abs(nm - nelec_target) < tol_nelec:
+                break
+            if nm < nelec_target:
+                lo = mu
+            else:
+                hi = mu
+        return mu
+
+    if dm0 is None:
+        mu = fit_mu(h1, mu0)
+        rho, ev, ew = _aufbau(h1 + mu * v_unit, nelec)
+    else:
+        rho, mu = _host(dm0), mu0
+    diis = DIIS(space=8)
+    E_old = np.inf
+    for it in range(max_cycle):
+        F0 = h1 + veff(rho)
+        mu = fit_mu(F0, mu)
+        F = F0 + mu * v_unit
+        err = F @ rho - rho @ F
+        if np.abs(err).max() < 1.0:
+            F0 = diis.update(F0.ravel(), xerr=err.ravel()).reshape(n, n)
+            mu = fit_mu(F0, mu)
+            F = F0 + mu * v_unit
+        rho, ev, ew = _aufbau(F, nelec)
+        # energy of the mu-free Hamiltonian (mu is a constraint device)
+        E = float(np.sum(h1 * rho) + 0.5 * np.sum(veff(rho) * rho))
+        if abs(E - E_old) < tol and np.abs(err).max() < np.sqrt(tol):
+            E_old = E
+            break
+        E_old = E
+    return E_old + float(Ham.H0), rho, ev, ew, mu

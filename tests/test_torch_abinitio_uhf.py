@@ -57,10 +57,16 @@ def test_one_shot_ib_uhf_dmet_matches_jax():
 
 
 def test_port_import_needs_no_jax_or_h5py():
-    """Importing the whole port loads neither jax, the JAX package nor
-    h5py (the machine with the card has none of them)."""
+    """Importing the whole port, the GSO / BCS modules included, loads
+    neither jax, the JAX package nor h5py (the machine with the card has
+    none of them)."""
     code = ("import sys, libdmet_preview_tpu_torch; "
             "import libdmet_preview_tpu_torch.interop; "
+            "import libdmet_preview_tpu_torch.ops.spinless, "
+            "libdmet_preview_tpu_torch.lo.scdm, "
+            "libdmet_preview_tpu_torch.dmet.hubbard_gso, "
+            "libdmet_preview_tpu_torch.dmet.hubbard_bcs; "
+            "from libdmet_preview_tpu_torch.dmet.loop import run_dmet_sc; "
             "bad = [m for m in sys.modules if m in ('jax', 'h5py', "
             "'libdmet_preview_tpu') or m.startswith(('jax.', 'h5py.', "
             "'libdmet_preview_tpu.'))]; "

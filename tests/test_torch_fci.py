@@ -207,6 +207,16 @@ def test_solver_class_matches_jax(restricted):
 
 
 def test_ghf_branch_raises():
+    """FCI(ghf=True), which raised before the GSO slice, now solves: one
+    species with nelec = (n, 0).  Without a two-body term E is the sum of
+    the n lowest levels of h plus H0 and rdm1 their projector (1e-10)."""
+    from libdmet_preview_tpu_torch.models.integral import Integral
     from libdmet_preview_tpu_torch.solvers import FCI
-    with pytest.raises(NotImplementedError):
-        FCI(restricted=True, ghf=True, device=CPU)
+    h = random_ints(6, 11)[0]
+    ham = Integral(6, True, False, 0.25, {"cd": h[None]},
+                   {"ccdd": np.zeros((1,) + (6,) * 4)})
+    rdm1, E = FCI(restricted=True, ghf=True, tol=1e-12,
+                  device=CPU).run(ham, nelec=2)
+    ew, ev = np.linalg.eigh(h)
+    assert abs(E - (ew[0] + ew[1] + 0.25)) < 1e-10
+    assert np.abs(np.asarray(rdm1[0]) - ev[:, :2] @ ev[:, :2].T).max() < 1e-10

@@ -173,8 +173,9 @@ def test_vcor_helpers_exact():
 def test_unported_fit_branches_raise():
     """The fit branches that used to raise (the whole-lattice stage of
     FitVcorTwoStep, the C_act hook of FitVcorEmb) now run; what the fit
-    module still cannot do is a Bogoliubov non-local vcor, which raises
-    and names its slice."""
+    module still cannot take is a Bogoliubov non-local vcor, which fails
+    the JAX package's own assertion (pairing goes through the GSO
+    frame)."""
     import copy
     from libdmet_preview_tpu_torch.ops import fit as tfit
     from libdmet_preview_tpu_torch.ops.vcor import VcorNonLocal
@@ -186,5 +187,5 @@ def test_unported_fit_branches_raise():
     _, e0, e1 = tfit.FitVcorEmb(T, lat_t, B, copy.deepcopy(vcor_t), np.inf,
                                 MaxIter=20, C_act=np.eye(4))
     assert np.isfinite(e0) and e1 <= e0
-    with pytest.raises(NotImplementedError, match="Slice 4"):
+    with pytest.raises(AssertionError, match="GSO path"):
         VcorNonLocal(True, True, lat_t)

@@ -237,17 +237,34 @@ def test_2d_mesh_negation_uses_the_cell_algebra():
     assert np.abs(Lat.expand(Lat.fock_lo_R) - fock_full).max() < 1e-10
 
 
-@pytest.mark.parametrize("build", [
+BOGO_BUILDS = [
     lambda m, L: m.VcorNonLocal(False, True, L),
     lambda m, L: m.VcorRestricted(True, True, [0], [1]),
     lambda m, L: m.VcorSymm(True, True, 4, [[1, 0, 3, 2]]),
     lambda m, L: m.VcorLocalPhSymm(4.0, True, (2, 2), [0, 3], [1, 2]),
     lambda m, L: m.VcorSymmBogo(True, 4, [[1, 0, 3, 2]]),
-])
+]
+
+
+@pytest.mark.parametrize("build", BOGO_BUILDS)
 def test_bogoliubov_vcors_name_their_slice(build):
-    _, tdmet = _pkgs()
-    with pytest.raises(NotImplementedError, match="Slice 4"):
-        build(tdmet, tdmet.SquareLattice(4, 4, 2, 2))
+    """The Bogoliubov vcor families that named the GSO slice in a raise
+    now build: three components, get() on seeded parameters equal to the
+    JAX package's (1e-14).  The non-local one fails the JAX package's own
+    assertion: a pairing vcor is local, through the GSO frame."""
+    jdmet, tdmet = _pkgs()
+    lat_t = tdmet.SquareLattice(4, 4, 2, 2)
+    if build is BOGO_BUILDS[0]:
+        with pytest.raises(AssertionError, match="GSO path"):
+            build(tdmet, lat_t)
+        return
+    vj, vt = build(jdmet, jdmet.SquareLattice(4, 4, 2, 2)), build(tdmet, lat_t)
+    assert vt.bogoliubov and vt.length() == vj.length()
+    p = np.random.RandomState(3).randn(vt.length())
+    vj.update(p)
+    vt.update(p)
+    assert np.asarray(vt.get()).shape[0] == 3
+    assert np.abs(np.asarray(vt.get()) - np.asarray(vj.get())).max() < 1e-14
 
 
 @pytest.mark.parametrize("spin", [1, 2])
