@@ -175,6 +175,42 @@ Phases, in order; any failure raises and the process exits non-zero:
           against its plain version, timed beside cuBLAS and its bound;
           and, inside 9c, get_emb_eri_gso_gdf against get_emb_eri_gso_chol
           on the same factors for a random GSO basis (1e-10 relative).
+ 11. ab initio lattices built on the card from the engine arrays shipped
+     in libdmet_preview_tpu_torch/data/ (the periodic H chain, 3 k-points,
+     3-21G):
+     11a. the self-consistent interacting-bath FCI loop of
+          tests/test_hchain_pbc.py:106-158 (RHartreeFock ->
+          update_ham_dense -> ConstructImpHam(int_bath=True) -> MuSolver
+          -> FCI -> transformResults -> FitVcor -> trace fix -> DIIS):
+          E/cell within 1e-4 of -1.243085261466 and 1e-6 of the JAX
+          package's value on the same integrals; exactly one symmetric
+          syrk launch per iteration, none of the cross kernel, no
+          plain-version call on the card; the last iteration replayed on
+          the CPU from the card's state (E, nelec, dmu, fit error: 1e-8);
+          stage seconds and the idle share of one iteration;
+     11b. the CC-family anchors (CCSD, CCD, BCCSD) and the FCI protocol
+          variants (csc_glob, det, idem_fit, E1 from the global rdm) of
+          tests/test_anchors.py:24-112, each within its anchor's
+          tolerance and 1e-5 of the JAX package's value;
+     11c. the UHF non-interacting bath (make_hchain_pbc_lattice_uhf +
+          update_ham_dense_uhf, tests/test_hchain_pbc.py:161-198): within
+          5e-5 of -1.238248899089, AFM order max |rho_a - rho_b| > 0.3, no
+          syrk launch;
+     11d. kscf_stripe_hf and one update_ham_eriF at make_diamond_lattice3's
+          width (3x3x3 cells x 8 orbitals, 8 electrons per cell) on random
+          translation-symmetric integrals (eriF from random real-space DF
+          factors and all their translations, 645 MB): card vs CPU, E 1e-10
+          and density stripes 1e-8; the same construction at 2x2x1 against
+          a dense supercell RHF (1e-8); s per SCF iteration, peak memory,
+          idle share;
+     11e. the tight-binding bands of tests/test_wannier.py in the
+          eigensolver's gauge: max_loc_U on the SSH chain and the 2D
+          square case scrambled by the test's random gauges, max_loc from
+          a projected start on a 3D cubic analogue on a 6x6x6 mesh; each
+          run stopped by its gradient test (converged), Omega card vs CPU
+          1e-8, the complete-basis cases at their exact minimum 0 (1e-8)
+          and the occupied SSH band at Omega_I;
+     then the symmetric kernel at the H chain's (naux, neo), timed.
 
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}.
@@ -1241,9 +1277,17 @@ def phase_dmet_loop_cholesky(device, card):
         raise AssertionError("cholesky chain loop: %d kernel launches, %d "
                              "plain-version calls on the card"
                              % (launches, plain_calls["cuda"]))
-    # the kernel at this path's shape against its plain version
-    naux, neo = CHOL_SHAPE
-    F = _packed_factors(naux, neo, seed=21, device=device)
+    err, ms, plain_ms, _, _ = tri_kernel_at(CHOL_SHAPE, device, card)
+    return launches, err, (ms, plain_ms)
+
+
+def tri_kernel_at(shape, device, card, seed=21):
+    """The symmetric kernel at a path's (naux, neo) against its plain
+    version, then timed beside it (plain, kernel, kernel, plain).  Returns
+    (max_abs_err, ms, plain_ms, bound_ms, bound_by)."""
+    from libdmet_preview_tpu_torch.ops import eri_kernels as ek
+    naux, neo = shape
+    F = _packed_factors(naux, neo, seed=seed, device=device)
     out = ek.syrk_df(F)
     torch.cuda.synchronize()
     err = _check_kernel("syrk_df (naux=%d, neo=%d)" % (naux, neo), out,
@@ -1256,7 +1300,7 @@ def phase_dmet_loop_cholesky(device, card):
     print("syrk_df timing (naux=%d, neo=%d, npair=%d) [%s]: kernel %.4f ms, "
           "plain (cuBLAS torch.mm) %.4f ms, bound %.6f ms (%s)"
           % (naux, neo, F.shape[1], card, ms, plain_ms, bound, by))
-    return launches, err, (ms, plain_ms)
+    return err, ms, plain_ms, bound, by
 
 
 # ----------------------------------------------------------------------
@@ -2596,6 +2640,334 @@ def phase_gso_abinitio(d, c, device, card):
                       "bound_ms": bound_ms, "bound_by": bound_by}, err
 
 
+# ----------------------------------------------------------------------
+# phase 11: ab initio lattices from the engine arrays, k-space stripe HF,
+# Wannier localization
+# ----------------------------------------------------------------------
+
+# 11e: tight-binding bands of tests/test_wannier.py and a 3D mesh.  The
+# gradient test stops at 1e-8, not max_loc_U's default 1e-10: the step
+# control accepts any move that raises Omega by less than 1e-14, so below a
+# gradient norm of ~1e-7 the descent no longer sees Omega and whether it
+# reaches 1e-10 depends on rounding (an SSH run missed it in 3000
+# iterations on an NVIDIA H100 80GB HBM3 at 700.00 W, where a CPU met it in
+# 1825).  At 1e-8 Omega is within ~1e-14 of its minimum.
+MAXLOC = {"ssh_nk": 16, "square_n": 12, "cubic_n": 6, "max_iter": 3000,
+          "tol": 1e-8, "cubic_guess": np.array([[1.0, 0.3], [-0.2, 1.0]])}
+
+
+def _print_hchain_stages(label, card, sec, n_it):
+    tot = sum(sum(v) for k, v in sec.items()
+              if k not in ("ERI rotation", "ERI pack", "ERI unpack",
+                           "syrk (tri kernel)"))
+    print("%s [%s]: %d iterations, %.4f s per iteration in the stages"
+          % (label, card, n_it, tot / n_it))
+    for k, v in sec.items():
+        print("%s [%s]: stage %-18s %.6f s per iteration (%d calls)"
+              % (label, card, k, sum(v) / n_it, len(v)))
+
+
+def phase_hchain_ib(device, card, ints):
+    """11a: the interacting-bath FCI loop on the 3-k-point H chain built
+    from the engine arrays, on the card: the anchor, the JAX package's
+    value, one iteration replayed on the CPU, launches and idle share.
+    Returns the tri kernel's launches on this path and its shape."""
+    from libdmet_preview_tpu_torch import workloads as wl
+    from libdmet_preview_tpu_torch.ops import eri_kernels as ek
+    from libdmet_preview_tpu_torch.utils import timer
+    Lat, meta = wl.hchain_lattice(ints, device)
+    solver = wl.hchain_solver("FCI", device)
+    # the main path: counts start at 0 here
+    _sync(device)
+    ek.syrk_df.launches = 0
+    ek.syrk_df.cross_launches = 0
+    t0 = time.perf_counter()
+    with _counted_plain_calls() as plain_calls, timer.recording() as sec:
+        E, recs = wl.run_hchain_dmet(Lat, meta, solver, wl.IB_PROTOCOL)
+    _sync(device)
+    wall = time.perf_counter() - t0
+    launches = ek.syrk_df.launches
+    cross = ek.syrk_df.cross_launches
+    naux = Lat.chol_L.shape[0]
+    neo = recs[-1]["neo"]
+    ref, tol = wl.HCHAIN_ANCHORS["IB FCI"]
+    jax = wl.HCHAIN_JAX["IB FCI"]
+    print("11a H chain IB FCI [%s]: E/cell %.12f, anchor %.12f (diff %.3e, "
+          "tol %.0e), JAX package on the same integrals %.12f (diff %.3e, "
+          "tol %.0e), %d iterations, %.3f s; syrk_df launches %d (cross %d) "
+          "at (naux, neo) = (%d, %d), plain-version calls on CUDA tensors %d"
+          % (card, E, ref, E - ref, tol, jax, E - jax, wl.IB_JAX_TOL,
+             len(recs), wall, launches, cross, naux, neo,
+             plain_calls["cuda"]))
+    _print_hchain_stages("11a H chain IB FCI", card, sec, len(recs))
+    # the last iteration again on the CPU, from the card's state
+    rec = recs[-1]
+    Lc, mc = wl.hchain_lattice(ints, torch.device("cpu"))
+    out_c = wl.replay_hchain_iteration(Lc, mc, wl.hchain_solver(
+        "FCI", torch.device("cpu")), wl.IB_PROTOCOL, rec)
+    diffs = {"E": abs(out_c[0] - rec["E"]), "nelec": abs(out_c[1]
+                                                         - rec["nelec"]),
+             "dmu": abs(out_c[2] - rec["dmu"]),
+             "fit_err": abs(out_c[3] - rec["fit_err"])}
+    for k, v in diffs.items():
+        print("11a replay of iteration %d on the CPU: %-8s |cuda - cpu| "
+              "%.3e (tol %.0e)" % (rec["iter"], k, v, LOOP_TOL))
+    print("11a replay: fitted vcor |cuda - cpu| %.3e (the fit's flat valley, "
+          "ROADMAP Queue 3)" % np.max(np.abs(out_c[4] - rec["fitted"])))
+    idle = _idle_share(lambda: wl.replay_hchain_iteration(
+        Lat, meta, solver, wl.IB_PROTOCOL, rec))
+    print("11a idle share of one iteration [%s]: %s" % (card, idle))
+    bad = [k for k, v in diffs.items() if not v <= LOOP_TOL]
+    if not abs(E - ref) < tol:
+        bad.append("anchor")
+    if not abs(E - jax) <= wl.IB_JAX_TOL:
+        bad.append("JAX value")
+    if launches != len(recs) or cross != 0 or plain_calls["cuda"] != 0:
+        bad.append("launches")
+    if bad:
+        raise AssertionError("11a failed: %s" % bad)
+    return launches, (naux, neo)
+
+
+def phase_hchain_variants(device, card, ints):
+    """11b: the CC-family anchors and the FCI protocol variants of the JAX
+    suite's run_hchain_dmet, each on a fresh lattice on the card.  Returns
+    the tri kernel's launches."""
+    from libdmet_preview_tpu_torch import workloads as wl
+    from libdmet_preview_tpu_torch.ops import eri_kernels as ek
+    bad, launches = [], 0
+    for name, solver_name, kw in wl.HCHAIN_VARIANTS:
+        Lat, meta = wl.hchain_lattice(ints, device)
+        _sync(device)
+        ek.syrk_df.launches = 0
+        t0 = time.perf_counter()
+        with _counted_plain_calls() as plain_calls:
+            E, recs = wl.run_hchain_dmet(Lat, meta, wl.hchain_solver(
+                solver_name, device), wl.ANCHOR_PROTOCOL, **kw)
+        _sync(device)
+        ref, tol = wl.HCHAIN_ANCHORS[name]
+        jax = wl.HCHAIN_JAX[name]
+        launches += ek.syrk_df.launches
+        print("11b H chain %-12s [%s]: E/cell %.12f, anchor %.12f (diff "
+              "%.3e, tol %.0e), JAX package %.12f (diff %.3e, tol %.0e), %d "
+              "iterations, %.3f s, %d syrk_df launches, %d plain-version "
+              "calls on CUDA tensors"
+              % (name, card, E, ref, E - ref, tol, jax, E - jax,
+                 wl.VARIANT_TOL,
+                 len(recs), time.perf_counter() - t0, ek.syrk_df.launches,
+                 plain_calls["cuda"]))
+        if not (abs(E - ref) < tol and abs(E - jax) <= wl.VARIANT_TOL
+                and ek.syrk_df.launches == len(recs)
+                and plain_calls["cuda"] == 0):
+            bad.append(name)
+    if bad:
+        raise AssertionError("11b failed: %s" % bad)
+    return launches
+
+
+def phase_hchain_nib_uhf(device, card, ints):
+    """11c: the UHF non-interacting bath on the card, no syrk launch."""
+    from libdmet_preview_tpu_torch import workloads as wl
+    from libdmet_preview_tpu_torch.ops import eri_kernels as ek
+    _sync(device)
+    ek.syrk_df.launches = 0
+    ek.syrk_df.cross_launches = 0
+    t0 = time.perf_counter()
+    E, afm, hf_err = wl.run_hchain_nib_uhf(ints, device)
+    _sync(device)
+    ref, tol = wl.HCHAIN_ANCHORS["NIB UHF"]
+    n_syrk = ek.syrk_df.launches + ek.syrk_df.cross_launches
+    print("11c H chain NIB UHF [%s]: E/cell %.12f, anchor %.12f (diff %.3e, "
+          "tol %.0e), max |rho_a - rho_b| %.4f, lattice HF vs supercell UHF "
+          "%.3e, %.3f s, syrk_df launches %d"
+          % (card, E, ref, E - ref, tol, afm, hf_err,
+             time.perf_counter() - t0, n_syrk))
+    if not (abs(E - ref) < tol and afm > 0.3 and hf_err < 1e-7
+            and n_syrk == 0):
+        raise AssertionError("11c failed")
+
+
+def phase_kscf(device, card):
+    """11d: the k-space stripe HF at make_diamond_lattice3's width (27
+    cells x 8 orbitals, 8 electrons per cell) on random
+    translation-symmetric integrals, card against CPU, and the same
+    construction at a 2x2x1 mesh against a dense supercell RHF."""
+    from libdmet_preview_tpu_torch import workloads as wl
+    kmesh = wl.KSCF["kmesh"]
+    work = wl.make_kscf_workload(kmesh, device=device)
+    eriF = work[3]
+    print("11d workload: %d cells x %d orbitals, eriF %s (%.1f MB) on the "
+          "card" % (work[0].ncells, wl.KSCF["nlo"], tuple(eriF.shape),
+                    eriF.numel() * 8 / 1e6))
+    from libdmet_preview_tpu_torch.utils import timer
+    torch.cuda.reset_peak_memory_stats(device)
+    info = {}
+    _sync(device)
+    t0 = time.perf_counter()
+    E_d, rho_d, fock_d, fupd_d, flo_d = wl.run_kscf(work, device, info)
+    _sync(device)
+    cold = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(device) / 1e9
+    n_it = info["n_iter"]
+    with timer.recording() as sec:          # the same again, warm
+        wl.run_kscf(work, device)
+    with timer.recording() as sec_c:
+        E_c, rho_c, fock_c, fupd_c, _ = wl.run_kscf(work,
+                                                    torch.device("cpu"))
+    idle = _idle_share(lambda: wl.run_kscf(work, device))
+    dE = abs(E_d - E_c)
+    drho = float(torch.max(torch.abs(rho_d.cpu() - rho_c)))
+    dupd = float(np.max(np.abs(fupd_d - fupd_c)))
+    dself = float(np.max(np.abs(fupd_d - flo_d)))
+    err_dense, E_k, E_dense = wl.kscf_dense_check(
+        device=torch.device("cpu"))
+    print("11d kscf_stripe_hf [%s]: E/cell %.12f, %d SCF iterations, "
+          "%.4f s cold with the JK tables and one update_ham_eriF, peak "
+          "%.3f GB, idle share %s (warm call)"
+          % (card, E_d / work[0].ncells, n_it, cold, peak, idle))
+    for k in sec:
+        print("11d stage %-27s [%s] %.5f s, CPU %.5f s"
+              % (k, card, sec[k][0], sec_c[k][0]))
+    per_it = [t["k-space SCF"][0] / n_it for t in (sec, sec_c)]
+    print("11d kscf_stripe_hf [%s]: %.6f s per SCF iteration over the JK "
+          "tables (CPU %.6f s)" % (card, per_it[0], per_it[1]))
+    print("11d card vs CPU: E %.3e (tol 1e-10), density stripes %.3e (tol "
+          "1e-8), update_ham_eriF Fock %.3e (tol 1e-8); update_ham_eriF at "
+          "the converged density vs the converged Fock %.3e (tol 1e-8)"
+          % (dE, drho, dupd, dself))
+    print("11d 2x2x1 mesh: kscf_stripe_hf %.12f vs dense supercell RHF "
+          "%.12f, |diff| %.3e (tol 1e-8)" % (E_k, E_dense, err_dense))
+    if not (dE <= 1e-10 and drho <= 1e-8 and dupd <= 1e-8 and dself <= 1e-8
+            and err_dense <= 1e-8):
+        raise AssertionError("11d failed")
+
+
+def _eigh_bands(kmesh, h_of_k):
+    """Bloch eigenvectors C(k) (nk, 2, 2) of a 2-orbital tight-binding
+    model h(k frac) on the kmesh_kpts_frac ordering, as numpy's eigh gives
+    them (tests/test_wannier.py): the gauge is the eigensolver's, random
+    per k."""
+    from libdmet_preview_tpu_torch.lo import maxloc
+    kf = maxloc.kmesh_kpts_frac(kmesh)
+    return np.array([np.linalg.eigh(h_of_k(k))[1] for k in kf])
+
+
+def maxloc_cases():
+    """tests/test_wannier.py's tight-binding bands in the eigensolver's
+    gauge: the SSH chain (both bands, the complete basis, scrambled by its
+    rand_gauge at amplitude 0.3; and its occupied band as eigh leaves it),
+    the 2D square case (rand_gauge at 0.05, the test's amplitude), and its
+    3D cubic analogue on a 6x6x6 mesh through max_loc's projected start
+    (guess: the two point orbitals mixed, so the minimization has work to
+    do; from the eigensolver's gauge alone the descent stalls in an Im ln
+    branch minimum, in the JAX package too).  Returns [(name, C_k, kmesh,
+    latt, tau, random gauge amplitude, rand_gauge seed, complete basis,
+    guess or None)]."""
+    n1, n2, n3 = MAXLOC["ssh_nk"], MAXLOC["square_n"], MAXLOC["cubic_n"]
+
+    def ssh(k):
+        ph = np.exp(2j * np.pi * k[0])
+        return np.array([[0, 1.0 + 0.4 * np.conj(ph)], [1.0 + 0.4 * ph, 0]])
+
+    def square(k):
+        phx = np.exp(2j * np.pi * k[0])
+        return np.array([[0.3, 0.8 + 0.2 * phx],
+                         [0.8 + 0.2 * np.conj(phx), -0.3]])
+
+    def cubic(k):
+        t = 0.8 + 0.1 * np.sum(np.exp(2j * np.pi * k))
+        return np.array([[0.3, t], [np.conj(t), -0.3]])
+
+    C1 = _eigh_bands((n1, 1, 1), ssh)
+    tau1 = np.array([[0.0, 0, 0], [0.4, 0, 0]])
+    return [
+        ("ssh", C1, (n1, 1, 1), np.diag([1.0, 10.0, 10.0]), tau1, 0.3, 0,
+         True, None),
+        ("ssh occupied", C1[:, :, :1], (n1, 1, 1),
+         np.diag([1.0, 10.0, 10.0]), tau1, 0.0, 0, False, None),
+        ("square", _eigh_bands((n2, n2, 1), square), (n2, n2, 1),
+         np.diag([1.0, 1.0, 8.0]), np.array([[0.1, 0.2, 0], [0.6, 0.7, 0]]),
+         0.05, 5, True, None),
+        ("cubic", _eigh_bands((n3, n3, n3), cubic), (n3, n3, n3), np.eye(3),
+         np.array([[0.1, 0.2, 0.3], [0.6, 0.7, 0.8]]), 0.0, 0, True,
+         MAXLOC["cubic_guess"])]
+
+
+def run_maxloc(case, device):
+    """One case on `device`: max_loc_U from the eigensolver's gauge times
+    tests/test_wannier.py's rand_gauge, or max_loc from the projection on
+    the case's guess.  Returns (info, seconds)."""
+    from libdmet_preview_tpu_torch.lo import maxloc
+    name, C, kmesh, latt, tau, amp, seed, _, guess = case
+    kw = {"max_iter": MAXLOC["max_iter"], "tol": MAXLOC["tol"],
+          "device": device}
+    _sync(device)
+    t0 = time.perf_counter()
+    if guess is not None:
+        _, _, info = maxloc.max_loc(C, kmesh, latt, tau=tau, guess=guess,
+                                    **kw)
+    else:
+        nk, nw = C.shape[0], C.shape[-1]
+        U0 = None
+        if amp > 0:
+            rng = np.random.RandomState(seed)
+            A = rng.randn(nk, nw, nw) + 1j * rng.randn(nk, nw, nw)
+            U0 = maxloc._expm_antiherm(torch.as_tensor(
+                (A - A.conj().swapaxes(-2, -1)) / 2 * amp, device=device))
+        M0, bv = maxloc.mmn_from_C(C, kmesh, latt, tau=tau, device=device)
+        _, info = maxloc.max_loc_U(M0, bv, U0=U0, **kw)
+    _sync(device)
+    return info, time.perf_counter() - t0
+
+
+def phase_maxloc(device, card):
+    """11e: the MV spread minimization on the card against the CPU, each
+    run stopped by its gradient test, and the complete-basis cases at
+    their exact minimum (Omega = 0)."""
+    bad = []
+    for case in maxloc_cases():
+        name, complete = case[0], case[7]
+        info_d, sec_d = run_maxloc(case, device)
+        info_c, sec_c = run_maxloc(case, torch.device("cpu"))
+        d = abs(info_d["omega"] - info_c["omega"])
+        floor = 0.0 if complete else info_d["omega_I"]
+        print("11e %-9s %-13s [%s]: kmesh %s, Omega %.3e -> %.12e (floor "
+              "%.12e), %d iterations, grad norm %.3e (tol %.0e), converged "
+              "%s (CPU %s, %d iterations), %.3f s (%.3f ms per iteration), "
+              "CPU %.3f s; card vs CPU Omega %.3e (tol 1e-8)"
+              % ("max_loc" if case[8] is not None else "max_loc_U", name,
+                 card, case[2], info_d["omega_init"], info_d["omega"], floor,
+                 info_d["n_iter"], info_d["grad_norm"], MAXLOC["tol"],
+                 info_d["converged"], info_c["converged"], info_c["n_iter"],
+                 sec_d, 1e3 * sec_d / info_d["n_iter"], sec_c, d))
+        if not (d <= 1e-8 and info_d["omega"] - floor < 1e-8
+                and info_d["converged"] and info_c["converged"]):
+            bad.append(name)
+    if bad:
+        raise AssertionError("11e failed: %s" % bad)
+
+
+def phase_abinitio_lattices(device, card):
+    """Phase 11.  Returns the tri kernel's launches on the H-chain paths,
+    and its max_abs_err and timing at the shape it has there."""
+    from libdmet_preview_tpu_torch import workloads as wl
+    from libdmet_preview_tpu_torch.models.engine_ints import load_engine_ints
+    ints = load_engine_ints(wl.HCHAIN_FILE)
+    print("11 engine arrays %s: %d AOs, %d electrons, %d cells (%s)"
+          % (wl.HCHAIN_FILE, ints.nao, ints.nelectron, ints.ncells,
+             ints.source))
+    launches, shape = phase_hchain_ib(device, card, ints)
+    launches += phase_hchain_variants(device, card, ints)
+    phase_hchain_nib_uhf(device, card, ints)
+    phase_kscf(device, card)
+    phase_maxloc(device, card)
+    err, ms, plain_ms, bound, by = tri_kernel_at(shape, device, card)
+    return launches, err, {
+        "shape": list(shape), "launches": launches, "ms": ms,
+        "plain_ms": plain_ms, "library_ms": plain_ms, "bound_ms": bound,
+        "bound_by": by}
+
+
 def main():
     t_start = time.perf_counter()
     device, card = phase_device()
@@ -2622,7 +2994,10 @@ def main():
         phase_three_band(device, card)
         phase_dwave(device, card)
         phase_doped(device, card)
-    max_abs["syrk_df"] = max(max_abs["syrk_df"], err_chol, err_gso)
+        launches_hchain, err_hchain, at_hchain = phase_abinitio_lattices(
+            device, card)
+    max_abs["syrk_df"] = max(max_abs["syrk_df"], err_chol, err_gso,
+                             err_hchain)
     print("card: %s" % card)
     naux, neo = PATH_SHAPE
     npair = neo * (neo + 1) // 2
@@ -2634,7 +3009,8 @@ def main():
               "abinitio_csc": launches_csc["syrk_df"],
               "abinitio_ccsd": launches_cc["syrk_df"],
               "dmet_loop_cholesky": launches_chol,
-              "abinitio_gso": launches_gso["syrk_df"]}),
+              "abinitio_gso": launches_gso["syrk_df"],
+              "abinitio_hchain": launches_hchain}),
             ("syrk_df_cross", "cross",
              "libdmet_preview_tpu/ops/pallas_eri.py:45",
              {"abinitio_uhf": launches_ai["syrk_df_cross"],
@@ -2668,6 +3044,9 @@ def main():
         "library_ms": times_chol[1], "bound_ms": bound_c, "bound_by": by_c}
     # the symmetric kernel at the shape the ab initio GSO path gives it
     kernels[0]["at_gso_shape"] = at_gso
+    # ... and the shape the H-chain lattices built from the engine arrays
+    # give it (phase 11)
+    kernels[0]["at_abinitio_hchain_shape"] = at_hchain
     print("chip_smoke total: %.1f s [%s]"
           % (time.perf_counter() - t_start, card))
     print(json.dumps({"kernels": kernels}))

@@ -1,8 +1,9 @@
 """
-libdmet_preview_tpu_torch: the PyTorch + CUDA port of libdmet_preview_tpu.
+libdmet_preview_tpu_torch: the PyTorch + CUDA port of the JAX package
+libdmet_preview_tpu/.
 
 The port keeps the JAX package's layout (models/, ops/, dmet/, utils/) and
-function names.  It never imports jax or libdmet_preview_tpu.  Tensors are
+function names.  It never imports jax or the JAX package.  Tensors are
 float64 / complex128, passed explicitly; every entry point that makes
 tensors from host data takes an explicit `device` (an ab initio lattice
 keeps the one given to set_Ham_abinitio, and what runs on it follows).

@@ -300,9 +300,13 @@ class LatticeModel(object):
         ((spin,) ncells, n, n) R stripes, two-body as Cholesky/DF factors
         (H2_format 'cholesky').  The lattice keeps its own copy of the
         factors on `device`, made once (Ham is left as it was); the mean
-        field and the embedding run on `device`."""
+        field and the embedding run on `device`.  A Ham without factors
+        (chol_L None) serves the non-interacting bath through its
+        unit-cell ERI eri_imp."""
         self.device = torch.device(device)
-        if (self.chol_L is None or self.Ham is not Ham
+        if Ham.getH2() is None:
+            self.chol_L = None
+        elif (self.chol_L is None or self.Ham is not Ham
                 or self.chol_L.device != self.device):
             self.chol_L = as_f64(Ham.getH2(), self.device)
         self.Ham = Ham
