@@ -211,6 +211,41 @@ Phases, in order; any failure raises and the process exits non-zero:
           1e-8, the complete-basis cases at their exact minimum 0 (1e-8)
           and the occupied SSH band at Omega_I;
      then the symmetric kernel at the H chain's (naux, neo), timed.
+ 12. the CAS solver family, tailored CC, OO-CCD / OO-MP2, static GW and
+     the external-solver bridges:
+     12a. (run after 11) the JAX suite's oracles at its own sizes, on the
+          card and on the CPU (each 1e-8 apart): CASCI(4, 4) == FCI (1e-9),
+          CASSCF(4, 4) == FCI (1e-8), the UCASSCF anchors -2.1477353252387
+          (FCI, 1e-8) and -1.8841957321182 (1e-6), the GCASSCF anchors
+          -8.42442890089805 and -8.188240873805, OOCCD == FCI at two
+          electrons (restricted, unrestricted, GHF), TCCSD on the full CAS
+          == FCI and TCCSD(4, 4) closer to FCI than CCSD on the 6-site U=4
+          chain, get_vsig_emb's bare limit == -K; the DMRG bridge (with
+          the JAX suite's NumPy fake Block binary: BlockDMRG, DMRG-CI,
+          GSO DMRG-SCF), the FCIDUMP bridge and the SHCI / AFQMC bridges
+          with fake binaries written to a temporary directory;
+     12b. (run right after 9a) phase 6's embedding problem (neo = 60, 120
+          spin orbitals): ConstructImpHam (exactly 2 symmetric + 1 cross
+          syrk launches, no plain-version call on the card) ->
+          UCASCI(12, 12) (853,776 determinants) and UTCCSD(8, 8) (CCSD at
+          120 spin orbitals with the CAS block frozen, the masked
+          adjoint), each from phase 6's converged UHF density and through
+          transformResults, run_dmet_ham == E (1e-8); get_vsig_emb on the
+          embedding UHF Fock and ERI, its bare limit == -K (1e-10
+          relative); stage seconds, sigma builds, amplitude iterations,
+          adjoint matvecs and solves, peak memory, the idle share of a
+          cold active FCI; UCASCI replayed on the CPU from the same
+          Hamiltonian and dm0, its Davidson started from the card's CI
+          vector (E 1e-8, rdm1 1e-7, run_dmet_ham 1e-8); UTCCSD(4, 4) on
+          the card and the CPU at phase 6's construction cut to 4 cells x
+          12 LOs (48 spin orbitals; the same tolerances);
+     12c. (run after 12a) the H-chain interacting-bath loop of 11a with
+          CASCI on the whole embedding space (6 orbitals, 4 electrons):
+          one symmetric syrk launch per iteration, every iteration equal
+          to FCI from the same state on the card (1e-8), the JAX FCI
+          value (1e-6); with CASSCF(4, 4): converged, its orbital work
+          (Newton minimizations, gradients, HVPs), the last iteration
+          replayed on the CPU (1e-8).
 
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}.
@@ -2093,7 +2128,7 @@ def phase_abinitio_ccsd(d, device, card):
         bad.append("energy or shape")
     if bad:
         raise AssertionError("abinitio CCSD failed: %s" % bad)
-    return launches
+    return launches, r["E"]
 
 
 def phase_ccsd_loop(device, card, fci_res):
@@ -2947,12 +2982,17 @@ def phase_maxloc(device, card):
         raise AssertionError("11e failed: %s" % bad)
 
 
+def ints_hchain():
+    from libdmet_preview_tpu_torch import workloads as wl
+    from libdmet_preview_tpu_torch.models.engine_ints import load_engine_ints
+    return load_engine_ints(wl.HCHAIN_FILE)
+
+
 def phase_abinitio_lattices(device, card):
     """Phase 11.  Returns the tri kernel's launches on the H-chain paths,
     and its max_abs_err and timing at the shape it has there."""
     from libdmet_preview_tpu_torch import workloads as wl
-    from libdmet_preview_tpu_torch.models.engine_ints import load_engine_ints
-    ints = load_engine_ints(wl.HCHAIN_FILE)
+    ints = ints_hchain()
     print("11 engine arrays %s: %d AOs, %d electrons, %d cells (%s)"
           % (wl.HCHAIN_FILE, ints.nao, ints.nelectron, ints.ncells,
              ints.source))
@@ -2968,6 +3008,589 @@ def phase_abinitio_lattices(device, card):
         "bound_by": by}
 
 
+# ----------------------------------------------------------------------
+# phase 12: the CAS solver family, tailored CC, OO-MP2 / OO-CCD, static GW
+# and the external-solver bridges
+# ----------------------------------------------------------------------
+
+CAS_AI = {"ucasci": (12, 12), "utccsd": (8, 8), "tol": 1e-10,
+          # the CPU replay of UTCCSD: phase 6's construction at 4 cells x
+          # 12 LOs (48 spin orbitals), UTCCSD(4, 4) on card and CPU
+          "replay": {"ncells": 4, "nlo": 12, "naux": 100, "cas": (4, 4)}}
+CAS_TOL = {"E": 1e-8, "rdm1": 1e-7, "E from the RDMs": 1e-8}
+HCHAIN_CAS = {"casci": (6, 4), "casscf": (4, 4)}
+
+
+def cas_oracles(device, work=None):
+    """12a's oracles on `device`: {name: (value, tolerance)}; a tolerance
+    None means the value must be below 0.  work, a dict, receives the
+    orbital optimizers' counts (Newton minimizations, gradients and HVPs
+    of the CASSCFs; energy-and-gradient evaluations of the OO-CCD BFGS
+    runs, one adjoint solve each)."""
+    from libdmet_preview_tpu_torch import solvers as S
+    from libdmet_preview_tpu_torch import workloads as wl
+    dev = dict(device=device)
+    out = {}
+    work = {} if work is None else work
+    H = wl.hubbard_integral(4, 4.0)
+    E_fci = S.FCI(restricted=True, tol=1e-12, **dev).run(H, nelec=4)[1]
+    out["CASCI(4,4) - FCI, 4-site U=4"] = (
+        S.CASCI(4, 4, tol=1e-12, **dev).run(H, nelec=4)[1] - E_fci, 1e-9)
+    out["TCCSD(4,4) - FCI, 4-site U=4"] = (
+        S.TCCSD(4, 4, restricted=True, tol=1e-10, **dev).run(H, nelec=4)[1]
+        - E_fci, 1e-7)
+    H = wl.random_integral(4, 11)
+    E_fci = S.FCI(restricted=True, tol=1e-12, **dev).run(H, nelec=4)[1]
+    out["CASSCF(4,4) - FCI, random seed 11"] = (
+        S.CASSCF(4, 4, max_cycle=60, **dev).run(H, nelec=4)[1] - E_fci, 1e-8)
+    H = wl.hubbard_integral(4, 4.0, ring=True,
+                            onsite=[-0.8, 0.3, -0.1, 0.6])
+    E_fci = S.FCI(restricted=False, tol=1e-12, **dev).run(H, nelec=4)[1]
+    out["UCASSCF ring: FCI - (-2.1477353252387)"] = (
+        E_fci + 2.1477353252387, 1e-8)
+    mc = S.UCASSCF(3, 2, Sz=0, tol=1e-7, max_cycle=20, **dev)
+    out["UCASSCF(3,2) - (-1.8841957321182)"] = (
+        mc.run(H, nelec=4)[1] + 1.8841957321182, 1e-6)
+    work["UCASSCF(3,2)"] = mc.counts
+    out["UCASSCF(3,2) run_dmet_ham - E"] = (mc.run_dmet_ham(H) - mc.e_tot,
+                                           1e-8)
+    H = wl.gso_ring()
+    E_fci = S.FCI(restricted=True, ghf=True, tol=1e-12, **dev).run(
+        H, nelec=4)[1]
+    out["GCASSCF ring: FCI(ghf) - (-8.42442890089805)"] = (
+        E_fci + 8.42442890089805, 1e-8)
+    mc = S.GCASSCF(6, 2, tol=1e-7, max_cycle=15, **dev)
+    out["GCASSCF(6,2) - (-8.188240873805)"] = (
+        mc.run(H, nelec=4)[1] + 8.188240873805, 1e-6)
+    work["GCASSCF(6,2)"] = mc.counts
+    H = wl.oo_integral()
+    for name, Hx, kw in (("restricted", H, dict(restricted=True)),
+                         ("GHF", wl.spin_orbital_integral(H),
+                          dict(ghf=True))):
+        E_fci = S.FCI(tol=1e-12, **kw, **dev).run(Hx, nelec=2)[1]
+        oo = S.OOCCD(oo_gtol=1e-8, **kw, **dev)
+        out["OOCCD - FCI, 2 electrons, %s" % name] = (
+            oo.run(Hx, nelec=2)[1] - E_fci, 1e-6)
+        work["OOCCD %s: evaluations" % name] = oo.n_eval
+    H = wl.hubbard_integral(4, 2.0, stag=0.3)
+    E_fci = S.FCI(restricted=False, tol=1e-12, **dev).run(H, nelec=2)[1]
+    oo = S.OOCCD(restricted=False, oo_gtol=1e-8, **dev)
+    out["OOCCD - FCI, 2 electrons, unrestricted"] = (
+        oo.run(H, nelec=2)[1] - E_fci, 1e-6)
+    work["OOCCD unrestricted: evaluations"] = oo.n_eval
+    H = wl.hubbard_integral(6, 4.0)
+    E_fci = S.FCI(restricted=True, tol=1e-12, **dev).run(H, nelec=6)[1]
+    E_cc = S.CCSD(restricted=True, tol=1e-9, **dev).run(H, nelec=6)[1]
+    E_tcc = S.TCCSD(4, 4, restricted=True, tol=1e-9, **dev).run(H,
+                                                                nelec=6)[1]
+    out["|TCCSD(4,4) - FCI| - |CCSD - FCI|, 6-site U=4"] = (
+        abs(E_tcc - E_fci) - abs(E_cc - E_fci), None)
+    fock, eri = wl.random_uhf_fock()
+    vs = S.get_vsig_emb(fock, eri, (2, 1), screened=False, **dev)
+    ref = wl.bare_exchange(torch.as_tensor(fock, device=device),
+                           torch.as_tensor(eri, device=device), (2, 1))
+    out["get_vsig_emb bare limit + K (max abs)"] = (
+        float(torch.max(torch.abs(vs - ref))), 1e-8)
+    return out
+
+
+def bridge_checks(device, tmp):
+    """The DMRG, FCIDUMP and QMC bridges with fake executables written to
+    `tmp` (workloads.FAKE_BLOCK, the JAX suite's NumPy-only fake Block
+    binary; SHCI and AFQMC fakes with the port's FCI on the CPU behind
+    their file formats), their
+    RDMs read back as tensors on `device`, against the port's FCI there:
+    {name: (value, tolerance)}."""
+    import sys
+    from libdmet_preview_tpu_torch import solvers as S
+    from libdmet_preview_tpu_torch import workloads as wl
+    from libdmet_preview_tpu_torch.solvers import qmc
+    dev = dict(device=device)
+    out = {}
+    py = sys.executable
+    block = [py, wl.write_fake(tmp, "fake_block.py", wl.FAKE_BLOCK),
+             "{conf}"]
+
+    def dmrg(wd, **kw):
+        s = S.BlockDMRG(block, max_M=600, workdir=os.path.join(tmp, wd),
+                        **kw, **dev)
+        s.schedule = S.Schedule(sweep_tol=1e-8).gen_initial(100, 600)
+        return s
+
+    H = wl.random_integral(4, 7)
+    fci = S.FCI(restricted=True, tol=1e-12, **dev)
+    r_f, E_f = fci.run(H, nelec=4)
+    r_d, E_d = dmrg("block", twopdm=False).run(H, nelec=4)
+    out["BlockDMRG E - FCI"] = (E_d - E_f, 1e-8)
+    out["BlockDMRG rdm1 - FCI (max abs)"] = (
+        float(torch.max(torch.abs(r_d - r_f))), 1e-7)
+    r_c, E_c = S.CASCI(2, 2, fcisolver=dmrg("dmrgci", twopdm=False),
+                       **dev).run(H, nelec=4)
+    r_c2, E_c2 = S.CASCI(2, 2, **dev).run(H, nelec=4)
+    out["DMRG-CI(2,2) E - CASCI(2,2)"] = (E_c - E_c2, 1e-7)
+    GH = wl.gso_ring(3, 2.0)
+    gs = S.GCASSCF(4, 2, tol=1e-6, max_cycle=8, fcisolver=dmrg(
+        "dmrgscf", restricted=False, Sz=2, spin_adapted=False, twopdm=True),
+        **dev)
+    E_g = gs.run(GH, nelec=3)[1]
+    E_g2 = S.GCASSCF(4, 2, tol=1e-6, max_cycle=8, **dev).run(GH, nelec=3)[1]
+    out["GSO DMRG-SCF E - GCASSCF"] = (E_g - E_g2, 1e-6)
+
+    stub = os.path.join(tmp, "stub_solver.py")
+    with open(stub, "w") as f:
+        f.write("import sys, numpy as np\n"
+                "assert open(sys.argv[1]).readline().startswith(' &FCI')\n"
+                "np.savetxt(sys.argv[2] + '/rdm1.txt', np.eye(4) * 0.5)\n"
+                "print('converged E = -2.718281828')\n")
+    ext = S.ExternalFCIDUMPSolver([py, stub, "{fcidump}", "{workdir}"],
+                                  rdm1_file="rdm1.txt",
+                                  workdir=os.path.join(tmp, "ext"), **dev)
+    r_e, E_e = ext.run(wl.hubbard_integral(4, 1.0), nelec=4)
+    out["ExternalFCIDUMPSolver E + 2.718281828"] = (E_e + 2.718281828, 1e-12)
+    out["ExternalFCIDUMPSolver rdm1[0, 0, 0] - 0.25"] = (
+        float(r_e[0, 0, 0]) - 0.25, 1e-12)
+
+    H = wl.hubbard_integral(4, 4.0)
+    r_f, E_f = S.FCI(restricted=True, tol=1e-12, **dev).run(H, nelec=4)
+    shci = qmc.SHCI(executable=wl.write_fake(tmp, "fake_shci.py",
+                                             wl.SHCI_FAKE),
+                    workdir=os.path.join(tmp, "shci"), restricted=True, **dev)
+    r_s, E_s = shci.run(H, nelec=4, calc_rdm2=True)
+    h1 = torch.as_tensor(H.H1["cd"][0], device=device)
+    g = torch.as_tensor(H.H2["ccdd"][0], device=device)
+    E_rdm = float(2.0 * torch.sum(h1 * r_s[0])
+                  + 0.5 * torch.sum(g * shci.twopdm[0])) + float(H.H0)
+    out["SHCI E - FCI"] = (E_s - E_f, 1e-9)
+    out["SHCI E from the RDMs read back - FCI"] = (E_rdm - E_f, 1e-8)
+    E_uf = S.FCI(restricted=False, tol=1e-12, **dev).run(
+        wl.np_integral(np.stack([H.H1["cd"][0]] * 2),
+                     np.stack([H.H2["ccdd"][0]] * 3)), nelec=4)[1]
+    af = qmc.AFQMC(executable=wl.write_fake(tmp, "fake_afqmc.py",
+                                            wl.AFQMC_FAKE),
+                   workdir=os.path.join(tmp, "afqmc"), **dev)
+    r_a, E_a = af.run(H, nelec=4)
+    out["AFQMC |E - FCI| / (6 x its error bar)"] = (
+        abs(E_a - E_uf) / (6 * af.e_err) - 1.0, None)
+    out["AFQMC tr(rdm1) - nelec"] = (float(torch.sum(torch.diagonal(
+        r_a, dim1=1, dim2=2))) - 4.0, 1e-6)
+    return out
+
+
+def phase_cas_oracles(device, card):
+    """12a: the JAX suite's oracles of the CAS family, tailored CC, OO-CCD
+    and static GW at their own sizes on the card and on the CPU, and the
+    three bridges with fake executables."""
+    import shutil
+    t0 = time.perf_counter()
+    work = {}
+    res_d = cas_oracles(device, work)
+    t_d = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res_c = cas_oracles(torch.device("cpu"))
+    t_c = time.perf_counter() - t0
+    bad = []
+    for k, (v, tol) in res_d.items():
+        vc = res_c[k][0]
+        ok = (v <= 0.0) if tol is None else abs(v) <= tol
+        print("12a %-50s card %.3e, CPU %.3e, |card - CPU| %.1e (%s)"
+              % (k, v, vc, abs(v - vc),
+                 "must be < 0" if tol is None else "tol %.0e" % tol))
+        if not ok or (tol is not None and not abs(vc) <= tol) \
+                or not abs(v - vc) <= 1e-8:
+            bad.append(k)
+    print("12a oracles [%s]: %.1f s on the card, %.1f s on the CPU; orbital "
+          "work on the card: %s" % (card, t_d, t_c, work))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_bridges_")
+    try:
+        t0 = time.perf_counter()
+        for k, (v, tol) in bridge_checks(device, tmp).items():
+            ok = (v <= 0.0) if tol is None else abs(v) <= tol
+            print("12a bridge %-44s %.3e (%s)"
+                  % (k, v, "must be < 0" if tol is None else "tol %.0e" % tol))
+            if not ok:
+                bad.append(k)
+        print("12a bridges [%s]: %.1f s (each fake binary a subprocess)"
+              % (card, time.perf_counter() - t0))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if bad:
+        raise AssertionError("12a failed: %s" % bad)
+
+
+def _cas_counts():
+    from libdmet_preview_tpu_torch.solvers import cc
+    return {"adjoint": cc._solve_adjoint.calls,
+            "masked adjoint": cc._solve_adjoint_masked.calls}
+
+
+def run_abinitio_cas(r, device):
+    """12b's main path on phase 6's lattice: ConstructImpHam, then
+    UCASCI and UTCCSD (windows CAS_AI["ucasci"], CAS_AI["utccsd"]) from the
+    converged UHF density of phase 6's SCF as dm0, with transformResults
+    each, and get_vsig_emb on the embedding UHF Fock and ERI.  Returns the
+    results and the stage seconds."""
+    import libdmet_preview_tpu_torch.dmet.hubbard as dmet
+    from libdmet_preview_tpu_torch import workloads as wl
+    from libdmet_preview_tpu_torch.solvers import UCASCI, UTCCSD, get_vsig_emb
+    from libdmet_preview_tpu_torch.solvers.scf import _veff_uhf
+    from libdmet_preview_tpu_torch.utils import timer
+    Lat = r["Lat"]
+    out = {}
+    with timer.recording() as sec:
+        with timer.stage("ConstructImpHam", device):
+            ImpHam, H1e, basis = dmet.ConstructImpHam(
+                Lat, r["rho"], r["vcor"], matching=True, int_bath=True)
+        nel, dm0 = r["nel"], r["rdm1"]
+        for name, solver in (
+                ("UCASCI", UCASCI(*CAS_AI["ucasci"], tol=CAS_AI["tol"],
+                                  device=device)),
+                ("UTCCSD", UTCCSD(*CAS_AI["utccsd"], restricted=False,
+                                  tol=CAS_AI["tol"], device=device))):
+            with timer.stage("%s.run" % name, device):
+                rdm1, E = solver.run(ImpHam, nelec=nel, dm0=dm0)
+            with timer.stage("%s energy" % name, device):
+                _, E_cell, n_cell = dmet.transformResults(
+                    rdm1, E, basis, ImpHam, H1e, lattice=Lat, last_dmu=0.0,
+                    int_bath=True, solver=solver,
+                    solver_args={"nelec": nel})
+                E_rdm = solver.run_dmet_ham(ImpHam)
+            out[name] = {"solver": solver, "rdm1": rdm1, "E": E,
+                         "E_cell": E_cell, "n_cell": n_cell, "E_rdm": E_rdm}
+        with timer.stage("get_vsig_emb", device):
+            H2 = ImpHam.H2["ccdd"]
+            h1 = ImpHam.H1["cd"]
+            dm = torch.as_tensor(dm0, device=device)
+            fock = h1 + torch.stack(_veff_uhf(dm[0], dm[1], H2[0], H2[1],
+                                              H2[2]))
+            nocc = tuple(int(round(float(torch.trace(x)))) for x in dm)
+            out["vsig"] = get_vsig_emb(fock, H2, nocc, device=device)
+            out["vsig bare"] = get_vsig_emb(fock, H2, nocc, screened=False,
+                                            chol_tol=1e-12, device=device)
+            out["-K"] = wl.bare_exchange(fock, H2[0], nocc)
+    out.update({"ImpHam": ImpHam, "nel": nel, "dm0": dm0})
+    return out, sec
+
+
+def _cas_replay(ImpHam, nel, dm0, cls, args, kw, device):
+    """One solver's run on `device` from the same Hamiltonian and dm0;
+    returns (rdm1, E, E from the RDMs)."""
+    from libdmet_preview_tpu_torch.models.integral import Integral
+    H = Integral(ImpHam.norb, ImpHam.restricted, False, ImpHam.H0,
+                 {"cd": ImpHam.H1["cd"].to(device)},
+                 {"ccdd": ImpHam.H2["ccdd"].to(device)})
+    solver = cls(*args, device=device, **kw)
+    rdm1, E = solver.run(H, nelec=nel, dm0=torch.as_tensor(dm0).to(device))
+    return rdm1, E, solver.run_dmet_ham(H)
+
+
+def tccsd_detail(solver, ImpHam, device, seed=17):
+    """UTCCSD's masked path once more at the solver's orbitals and frozen
+    CAS amplitudes: the frozen amplitude solve again on `device` (its
+    energy against the run's, its frozen entries against the CAS
+    amplitudes), then one masked residual and one masked adjoint matvec
+    at the converged amplitudes on `device` and on the CPU.  Returns
+    ({name: (value, tolerance)}, seconds of the CPU's two evaluations)."""
+    from libdmet_preview_tpu_torch.solvers import cc as tcc
+    from libdmet_preview_tpu_torch.utils.misc import as_f64
+    Ca, Cb, na, nb = solver._mo
+    nocc = na + nb
+    frozen = solver.frozen
+    blocks = solver._unpack(ImpHam)
+    with torch.no_grad():
+        h_so, g = tcc._mo_so_integrals(blocks[:2], blocks[2:],
+                                       as_f64(Ca, device), as_f64(Cb, device),
+                                       na, nb)
+        W = tcc._antisymmetrize(g)
+        del g
+        t1, t2, conv = tcc._solve_amplitudes_frozen(
+            h_so, W, *frozen, nocc, **dict(solver._opts()))
+        E = float(tcc._e_ref(h_so, W, nocc)
+                  + tcc._ecorr(t1, t2, h_so, W, nocc)) + float(ImpHam.H0)
+    m1, t1f, m2, t2f = frozen
+    out = {"UTCCSD E from the amplitudes again - E of the run": (
+        E - solver.e_tot, 1e-8)}
+    out["frozen entries - CAS amplitudes (max abs)"] = (max(
+        float(torch.max(torch.abs(torch.where(m > 0, t - tf, 0.0))))
+        for m, t, tf in ((m1, t1, t1f), (m2, t2, t2f))), 0.0)
+    x = torch.cat([v.reshape(-1) for v in _seeded_amplitudes(
+        nocc, h_so.shape[0] - nocc, seed, device)])
+
+    def evaluate(dev):
+        h, Wd, a1, a2 = (v.to(dev) for v in (h_so, W, t1, t2))
+        f1, f2 = (v.to(dev) for v in (m1, m2))
+        with torch.no_grad():
+            R1, R2 = tcc._residual(a1, a2, h, Wd, nocc)
+            R = (torch.where(f1 > 0, 0.0, R1), torch.where(f2 > 0, 0.0, R2))
+        A = tcc._masked_adjoint_operator(h, Wd, nocc, a1, a2, f1, f2)[0]
+        return R, A(x.to(dev))
+
+    R_d, A_d = evaluate(device)
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    R_c, A_c = evaluate(cpu)
+    t_cpu = time.perf_counter() - t0
+    scale = float(torch.max(torch.abs(W[:nocc, :nocc, nocc:, nocc:])))
+    out["masked residual: max|R| on the relaxed entries"] = (
+        max(float(torch.max(torch.abs(r))) for r in R_d), CAS_AI["tol"])
+    out["masked residual card - CPU (rel. to max|W_oovv|)"] = (max(
+        float(torch.max(torch.abs(a.to(cpu) - b)))
+        for a, b in zip(R_d, R_c)) / scale, 1e-10)
+    out["masked adjoint matvec card - CPU (rel.)"] = (
+        float(torch.max(torch.abs(A_d.to(cpu) - A_c)))
+        / float(torch.max(torch.abs(A_c))), 1e-10)
+    if not conv:
+        out["frozen amplitude solve converged"] = (1.0, 0.0)
+    return out, t_cpu
+
+
+def exchange_spread(ImpHam):
+    """The aa block of the embedding ERI: the means of the exchange-type
+    (pq|pq) and the Coulomb-type (pp|qq) integrals over p != q, and the
+    root mean square of all its entries."""
+    g = ImpHam.H2["ccdd"][0]
+    off = ~torch.eye(g.shape[0], dtype=torch.bool, device=g.device)
+    return (float(torch.einsum("pqpq -> pq", g)[off].mean()),
+            float(torch.einsum("ppqq -> pq", g)[off].mean()),
+            float(torch.sqrt(torch.mean(g ** 2))))
+
+
+def phase_abinitio_cas(d, device, card, E_ccsd):
+    """12b on phase 6's embedding problem (neo = 60, 120 spin orbitals; run
+    right after 9a, whose UCCSD energy is E_ccsd): counts from 0 for the
+    path; UTCCSD(8, 8) against UCCSD and its masked residual and adjoint
+    matvec at 120 spin orbitals card vs CPU; UCASCI(12, 12) replayed on
+    the CPU from the same Hamiltonian and dm0; UTCCSD on the CPU at phase
+    6's construction cut to 4 cells x 12 LOs."""
+    from libdmet_preview_tpu_torch.ops.eri_kernels import syrk_df
+    from libdmet_preview_tpu_torch.solvers import FCI, UCASCI, UTCCSD, cc
+    torch.cuda.reset_peak_memory_stats()
+    _sync(device)
+    syrk_df.launches = 0
+    syrk_df.cross_launches = 0
+    counts0 = _cas_counts()
+    t0 = time.perf_counter()
+    with _counted_plain_calls() as plain_calls:
+        r, sec = run_abinitio_cas(d, device)
+    _sync(device)
+    wall = time.perf_counter() - t0
+    launches = {"syrk_df": syrk_df.launches,
+                "syrk_df_cross": syrk_df.cross_launches}
+    counts = {k: v - counts0[k] for k, v in _cas_counts().items()}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    ImpHam, nel = r["ImpHam"], r["nel"]
+    uc, ut = r["UCASCI"]["solver"], r["UTCCSD"]["solver"]
+    amp = dict(cc._solve_amplitudes_frozen.last)
+    adj = dict(cc._solve_adjoint_masked.last)
+    print("12b abinitio CAS [%s]: neo=%d (%d spin orbitals), nelec=%d; "
+          "UCASCI%s active FCI %d determinants, %d sigma builds; UTCCSD%s "
+          "CAS FCI %d sigma builds, amplitudes %d iterations (max|R| %.3e), "
+          "masked adjoint %d matvecs (residual %.3e, %s), adjoint solves %s; "
+          "%.2f s, peak device memory %.3f GB; syrk_df launches %d, cross "
+          "launches %d, plain-version calls on CUDA tensors %d"
+          % (card, ImpHam.norb, 2 * ImpHam.norb, nel, CAS_AI["ucasci"],
+             uc.fcisolver.ci.numel(), uc.fcisolver.n_sigma, CAS_AI["utccsd"],
+             ut.cas_counter["sigma"], amp["iterations"], amp["max|R|"],
+             adj["matvecs"], adj["residual"], adj["branch"], counts, wall,
+             peak, launches["syrk_df"], launches["syrk_df_cross"],
+             plain_calls["cuda"]))
+    for k, v in sec.items():
+        print("12b abinitio CAS [%s]: stage %-32s %.6f s (%d call%s)"
+              % (card, k, sum(v), len(v), "" if len(v) == 1 else "s"))
+    scf = sum(sec.get("CAS reference SCF", [])) \
+        + sum(sec.get("CC reference SCF", []))
+    print("12b abinitio CAS [%s]: the two reference UHFs (dm0 = phase 6's "
+          "converged density; their host BFGS stability check) %.3f s, "
+          "%.1f%% of the path" % (card, scf, 100.0 * scf / wall))
+    for name in ("UCASCI", "UTCCSD"):
+        x = r[name]
+        print("12b %s [%s]: E %.10f (UHF %.10f), E/cell %.10f, nelec/cell "
+              "%.10f" % (name, card, x["E"], x["solver"].scfsolver.e_tot
+                         if name == "UTCCSD" else x["solver"].scf.e_tot,
+                         x["E_cell"], x["n_cell"]))
+    # the scale of this Hamiltonian's correlation: 9a's UCCSD on the same
+    # embedding problem, the tailoring's shift from it, and the integrals
+    # behind it
+    E_uhf = ut.scfsolver.e_tot
+    K, J, rms = exchange_spread(ImpHam)
+    print("12b [%s]: E(UCCSD, 9a) - E(UHF) %.10f; E(UTCCSD%s) - E(UCCSD) "
+          "%.10f; E(UCASCI%s) - E(UHF) %.10f; the aa ERI's mean (pq|pq) "
+          "%.6f, mean (pp|qq) %.6f (p != q), rms %.6f"
+          % (card, E_ccsd - E_uhf, CAS_AI["utccsd"], r["UTCCSD"]["E"]
+             - E_ccsd, CAS_AI["ucasci"], r["UCASCI"]["E"] - uc.scf.e_tot, K,
+             J, rms))
+    checks = {}
+    t0 = time.perf_counter()
+    detail, t_cpu = tccsd_detail(ut, ImpHam, device)
+    print("12b UTCCSD%s masked path again at %d spin orbitals: %.1f s, of "
+          "it the CPU's residual and adjoint matvec %.1f s"
+          % (CAS_AI["utccsd"], 2 * ImpHam.norb, time.perf_counter() - t0,
+             t_cpu))
+    checks.update(detail)
+    for name in ("UCASCI", "UTCCSD"):
+        x = r[name]
+        checks["%s run_dmet_ham - E" % name] = (x["E_rdm"] - x["E"], 1e-8)
+        checks["%s tr(rdm1) - nelec" % name] = (float(
+            torch.trace(x["rdm1"][0]) + torch.trace(x["rdm1"][1])) - nel,
+            1e-8)
+    vs, vb, mk = r["vsig"], r["vsig bare"], r["-K"]
+    checks["get_vsig_emb bare limit + K (rel)"] = (
+        float(torch.max(torch.abs(vb - mk)) / torch.max(torch.abs(mk))),
+        1e-10)
+    checks["get_vsig_emb asymmetry"] = (float(torch.max(torch.abs(
+        vs - vs.transpose(1, 2)))), 1e-12)
+    print("12b get_vsig_emb [%s]: max|vsig| %.6f, max|vsig - vsig_bare| %.6f"
+          % (card, float(torch.max(torch.abs(vs))),
+             float(torch.max(torch.abs(vs - vb)))))
+    if device.type == "cuda":
+        # idle share of the card over one cold active-space FCI of UCASCI
+        Ham_cas = uc._cas[4]
+        fci = FCI(restricted=False, Sz=uc.na_cas - uc.nb_cas,
+                  tol=CAS_AI["tol"], device=device)
+        with _Profiled() as prof:
+            fci.run(Ham_cas, nelec=uc.na_cas + uc.nb_cas)
+        print("12b UCASCI active FCI again, cold, profiled [%s]: %d sigma "
+              "builds, idle share of the card %s"
+              % (card, fci.n_sigma, "not measured" if prof.idle is None
+                 else "%.4f" % prof.idle))
+
+    # the CPU replays: UCASCI from the same Hamiltonian and dm0, its
+    # Davidson started from the card's converged vector (a cold start
+    # takes ~70 sigma builds of ~3 s on the CPU); UTCCSD on a cut problem
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    fci_c = FCI(restricted=False, Sz=uc.na_cas - uc.nb_cas,
+                tol=CAS_AI["tol"], device=cpu)
+    fci_c.ci = uc.fcisolver.ci.cpu()
+    r1c, Ec, Erc = _cas_replay(ImpHam, nel, r["dm0"], UCASCI,
+                               CAS_AI["ucasci"], {"tol": CAS_AI["tol"],
+                                                  "fcisolver": fci_c}, cpu)
+    print("12b UCASCI replay on the CPU from the card's CI vector: %.1f s, "
+          "%d sigma builds" % (time.perf_counter() - t0, fci_c.n_sigma))
+    x = r["UCASCI"]
+    checks["UCASCI card - CPU: E"] = (x["E"] - Ec, CAS_TOL["E"])
+    checks["UCASCI card - CPU: rdm1 (max abs)"] = (float(torch.max(
+        torch.abs(x["rdm1"].cpu() - r1c))), CAS_TOL["rdm1"])
+    checks["UCASCI card - CPU: run_dmet_ham"] = (x["E_rdm"] - Erc,
+                                                 CAS_TOL["E from the RDMs"])
+    rp = CAS_AI["replay"]
+    t0 = time.perf_counter()
+    wl_small = make_abinitio_workload(ncells=rp["ncells"], nlo=rp["nlo"],
+                                      naux=rp["naux"])
+    # the same embedding problem on both (the bath's SVD gauge differs
+    # between the card's and the CPU's runs of the construction)
+    rs = run_abinitio_uhf(*wl_small, device, ncells=rp["ncells"])[0]
+    (r1d, Ed, Erd), (r1c, Ec, Erc) = (
+        _cas_replay(rs["ImpHam"], rs["nel"], rs["rdm1"], UTCCSD, rp["cas"],
+                    {"restricted": False, "tol": CAS_AI["tol"]}, dv)
+        for dv in (device, cpu))
+    print("12b UTCCSD%s at %d cells x %d LOs (%d spin orbitals), card and "
+          "CPU on the card's embedding problem: %.1f s"
+          % (rp["cas"], rp["ncells"], rp["nlo"], 4 * rp["nlo"],
+             time.perf_counter() - t0))
+    checks["UTCCSD (cut) card - CPU: E"] = (Ed - Ec, CAS_TOL["E"])
+    checks["UTCCSD (cut) card - CPU: rdm1 (max abs)"] = (float(torch.max(
+        torch.abs(r1d.cpu() - r1c))), CAS_TOL["rdm1"])
+    checks["UTCCSD (cut) card - CPU: run_dmet_ham"] = (
+        Erd - Erc, CAS_TOL["E from the RDMs"])
+    checks["UTCCSD (cut) run_dmet_ham - E"] = (Erd - Ed, 1e-8)
+    bad = []
+    for k, (v, tol) in checks.items():
+        print("12b %-56s %.3e (tol %.0e)" % (k, v, tol))
+        if not abs(v) <= tol:
+            bad.append(k)
+    if launches != {"syrk_df": 2, "syrk_df_cross": 1} \
+            or plain_calls["cuda"] != 0 or ImpHam.norb != PATH_SHAPE[1]:
+        bad.append("launch counts %s, plain calls %d"
+                   % (launches, plain_calls["cuda"]))
+    if not (amp["converged"] and adj["residual"] <= 1e-8
+            and r["UTCCSD"]["E"] < ut.scfsolver.e_tot
+            and r["UCASCI"]["E"] < uc.scf.e_tot):
+        bad.append("convergence or energies")
+    # tailoring with the (8, 8) window moves E off UCCSD by less than the
+    # whole correlation energy of the larger (12, 12) window
+    if not abs(r["UTCCSD"]["E"] - E_ccsd) < uc.scf.e_tot - r["UCASCI"]["E"]:
+        bad.append("UTCCSD - UCCSD")
+    if bad:
+        raise AssertionError("12b failed: %s" % bad)
+    return launches
+
+
+def phase_hchain_cas(device, card, ints):
+    """12c: the H-chain interacting-bath loop with CASCI on the whole
+    embedding space (each iteration replayed with FCI from the same state
+    on the card, 1e-8) and with CASSCF on a smaller active space (converged;
+    its last iteration replayed on the CPU, 1e-8).  Returns the tri
+    kernel's launches."""
+    from libdmet_preview_tpu_torch import workloads as wl
+    from libdmet_preview_tpu_torch.ops import eri_kernels as ek
+    from libdmet_preview_tpu_torch.solvers import CASCI, CASSCF
+    from libdmet_preview_tpu_torch.utils import timer
+    bad, launches = [], 0
+    runs = [("CASCI%s" % (HCHAIN_CAS["casci"],),
+             lambda dv: CASCI(*HCHAIN_CAS["casci"], tol=1e-12, device=dv)),
+            ("CASSCF%s" % (HCHAIN_CAS["casscf"],),
+             lambda dv: CASSCF(*HCHAIN_CAS["casscf"], tol=1e-8, device=dv))]
+    for name, make in runs:
+        Lat, meta = wl.hchain_lattice(ints, device)
+        solver = make(device)
+        # the path: counts start at 0 here
+        _sync(device)
+        ek.syrk_df.launches = 0
+        ek.syrk_df.cross_launches = 0
+        t0 = time.perf_counter()
+        with _counted_plain_calls() as plain_calls, \
+                timer.recording() as sec:
+            E, recs = wl.run_hchain_dmet(Lat, meta, solver, wl.IB_PROTOCOL)
+        _sync(device)
+        wall = time.perf_counter() - t0
+        n_l = ek.syrk_df.launches
+        launches += n_l
+        print("12c H chain IB %s [%s]: E/cell %.12f, %d iterations, %.3f s; "
+              "syrk_df launches %d (cross %d), plain-version calls on CUDA "
+              "tensors %d" % (name, card, E, len(recs), wall, n_l,
+                              ek.syrk_df.cross_launches, plain_calls["cuda"]))
+        _print_hchain_stages("12c H chain IB %s" % name, card, sec, len(recs))
+        if n_l != len(recs) or ek.syrk_df.cross_launches \
+                or plain_calls["cuda"]:
+            bad.append("%s launches" % name)
+        if name.startswith("CASCI"):
+            ref = wl.HCHAIN_JAX["IB FCI"]
+            if not abs(E - ref) <= wl.IB_JAX_TOL:
+                bad.append("CASCI loop vs the JAX FCI value")
+            fci = wl.hchain_solver("FCI", device)
+            L2, m2 = wl.hchain_lattice(ints, device)
+            for rec in recs:
+                out = wl.replay_hchain_iteration(L2, m2, fci, wl.IB_PROTOCOL,
+                                                 rec)
+                diffs = [abs(out[0] - rec["E"]), abs(out[1] - rec["nelec"]),
+                         abs(out[3] - rec["fit_err"])]
+                print("12c iteration %d: CASCI loop - FCI from the same "
+                      "state: E %.3e, nelec %.3e, fit error %.3e (tol %.0e)"
+                      % (rec["iter"], diffs[0], diffs[1], diffs[2], LOOP_TOL))
+                if not max(diffs) <= LOOP_TOL:
+                    bad.append("CASCI iteration %d" % rec["iter"])
+        else:
+            if not len(recs) < wl.IB_PROTOCOL["max_iter"]:
+                bad.append("CASSCF loop did not converge")
+            rec = recs[-1]
+            cpu = torch.device("cpu")
+            Lc, mc = wl.hchain_lattice(ints, cpu)
+            out = wl.replay_hchain_iteration(Lc, mc, make(cpu),
+                                             wl.IB_PROTOCOL, rec)
+            diffs = [abs(out[0] - rec["E"]), abs(out[1] - rec["nelec"]),
+                     abs(out[3] - rec["fit_err"])]
+            print("12c CASSCF iteration %d replayed on the CPU: E %.3e, nelec "
+                  "%.3e, fit error %.3e (tol %.0e); orbital work of the loop "
+                  "on the card: %s"
+                  % (rec["iter"], diffs[0], diffs[1], diffs[2], LOOP_TOL,
+                     solver.counts))
+            if not max(diffs) <= LOOP_TOL:
+                bad.append("CASSCF replay")
+    if bad:
+        raise AssertionError("12c failed: %s" % bad)
+    return launches
+
+
 def main():
     t_start = time.perf_counter()
     device, card = phase_device()
@@ -2978,7 +3601,10 @@ def main():
     phase_hubbard(device)
     launches_ai, run_d, run_c = phase_abinitio_uhf(device)
     with _quiet():
-        launches_cc = phase_abinitio_ccsd(run_d, device, card)
+        launches_cc, E_ccsd = phase_abinitio_ccsd(run_d, device, card)
+        t12 = time.perf_counter()
+        launches_cas = phase_abinitio_cas(run_d, device, card, E_ccsd)
+        t12 = time.perf_counter() - t12
         launches_gso, at_gso, err_gso = phase_gso_abinitio(run_d, run_c,
                                                            device, card)
         launches_csc = phase_abinitio_csc(run_d, run_c, device, card)
@@ -2996,6 +3622,10 @@ def main():
         phase_doped(device, card)
         launches_hchain, err_hchain, at_hchain = phase_abinitio_lattices(
             device, card)
+        t0 = time.perf_counter()
+        phase_cas_oracles(device, card)
+        launches_hchain_cas = phase_hchain_cas(device, card, ints_hchain())
+        t12 += time.perf_counter() - t0
     max_abs["syrk_df"] = max(max_abs["syrk_df"], err_chol, err_gso,
                              err_hchain)
     print("card: %s" % card)
@@ -3010,13 +3640,16 @@ def main():
               "abinitio_ccsd": launches_cc["syrk_df"],
               "dmet_loop_cholesky": launches_chol,
               "abinitio_gso": launches_gso["syrk_df"],
-              "abinitio_hchain": launches_hchain}),
+              "abinitio_hchain": launches_hchain,
+              "abinitio_cas": launches_cas["syrk_df"],
+              "hchain_cas": launches_hchain_cas}),
             ("syrk_df_cross", "cross",
              "libdmet_preview_tpu/ops/pallas_eri.py:45",
              {"abinitio_uhf": launches_ai["syrk_df_cross"],
               "abinitio_csc": launches_csc["syrk_df_cross"],
               "abinitio_ccsd": launches_cc["syrk_df_cross"],
-              "abinitio_gso": launches_gso["syrk_df_cross"]})]:
+              "abinitio_gso": launches_gso["syrk_df_cross"],
+              "abinitio_cas": launches_cas["syrk_df_cross"]})]:
         ms, plain_ms = times[(name, naux, neo)]
         bound_ms, bound_by, _ = kernel_bound(kind, naux, npair)
         print("%s at the path shape (naux=%d, neo=%d): kernel/cuBLAS %.3f, "
@@ -3047,8 +3680,8 @@ def main():
     # ... and the shape the H-chain lattices built from the engine arrays
     # give it (phase 11)
     kernels[0]["at_abinitio_hchain_shape"] = at_hchain
-    print("chip_smoke total: %.1f s [%s]"
-          % (time.perf_counter() - t_start, card))
+    print("chip_smoke total: %.1f s, of it phase 12 %.1f s [%s]"
+          % (time.perf_counter() - t_start, t12, card))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

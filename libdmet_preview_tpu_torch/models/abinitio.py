@@ -198,7 +198,7 @@ def make_molecule_lattice(ints, chol_tol=1e-10, device=torch.device("cuda")):
     rdm1_lo = dm[0] + dm[1]
     fock_lo = h_lo + _veff_uhf(dm[0], dm[1], eri_lo, eri_lo, eri_lo)[0]
 
-    chol_L = cholesky_eri(to_host(eri_lo), tol=chol_tol)
+    chol_L = cholesky_eri(eri_lo, tol=chol_tol)
     Lat = ChainLattice(nsite, nsite)      # one cell holding all LOs
     Ham = AbInitioHam(to_host(h_lo)[None], to_host(fock_lo)[None], chol_L,
                       eri_lo, ints.e_nuc)
@@ -244,7 +244,7 @@ def make_h_ring_lattice(ints, chol_tol=1e-10, localization="lowdin",
     # full matrix = stripe[(ci - cj) mod N])
     h_R, fock_R, rdm1_R = [to_host(_first_column_stripes(M, ncells, nlo))
                            for M in (h_lo, fock_lo, rdm1_lo)]
-    chol_L = cholesky_eri(to_host(eri_lo), tol=chol_tol)
+    chol_L = cholesky_eri(eri_lo, tol=chol_tol)
     eri_imp = eri_lo[:nlo, :nlo, :nlo, :nlo].clone()
 
     Lat = ChainLattice(ncells * nlo, nlo)
@@ -287,7 +287,7 @@ def make_hchain_pbc_lattice(ints, localization="iao", chol_tol=1e-9,
     h_lo, eri_lo, rdm1_lo, fock_lo = _lo_operators(ints, C, dm, device)
     h_R, fock_R, rdm1_R = [to_host(_stripe_symm(M, nk, nlo))
                            for M in (h_lo, fock_lo, rdm1_lo)]
-    chol_L = cholesky_eri(to_host(eri_lo), tol=chol_tol)
+    chol_L = cholesky_eri(eri_lo, tol=chol_tol)
     eri_imp = eri_lo[:nlo, :nlo, :nlo, :nlo].clone()
 
     Lat = ChainLattice(nk * nlo, nlo)

@@ -455,7 +455,7 @@ def _emb_H1(lattice, basis, vcor, H2_emb, int_bath=True, add_vcor=False,
     if getattr(lattice, "xc_dc", None) is not None:
         raise NotImplementedError(
             "embedding H1: the DFT double counting (xc_dc) is not ported "
-            "yet: it belongs to the DFT slice (Slice 5)")
+            "yet: it belongs to the DFT slice (Slice 5b)")
     spin = basis.shape[0]
     basis_k = lattice.R2k_basis(basis)
     hcore_emb = transform_h1(lattice.getH1(kspace=True), basis_k)

@@ -37,26 +37,32 @@ from libdmet_preview_tpu_torch.ops.eri_kernels import (pack_tril, syrk_df,
 
 def cholesky_eri(eri, tol=1e-9, max_rank=None):
     """Pivoted (modified) Cholesky factorization of a (n, n, n, n) chemist
-    ERI: eri ~= sum_x L[x] (x) L[x], L (naux, n, n).  Host NumPy."""
-    eri = np.asarray(eri)
+    ERI: eri ~= sum_x L[x] (x) L[x], L (naux, n, n).  Runs on the tensor's
+    device (one read of the pivot per vector) and returns a tensor there;
+    an array goes through a CPU tensor and comes back as an array."""
+    if not isinstance(eri, torch.Tensor):
+        return cholesky_eri(torch.from_numpy(np.asarray(eri, dtype=np.float64)),
+                            tol, max_rank).numpy()
     n = eri.shape[0]
-    M = eri.reshape(n * n, n * n).copy()
-    diag = np.diag(M).copy()
+    M = eri.reshape(n * n, n * n).to(torch.float64).clone()
+    diag = torch.diagonal(M).clone()
     if max_rank is None:
         max_rank = n * n
     Ls = []
     for _ in range(max_rank):
-        p = int(np.argmax(diag))
-        dmax = diag[p]
+        p = torch.argmax(diag)
+        dmax, p = torch.stack([diag[p], p.to(diag.dtype)]).tolist()
         if dmax < tol:
             break
-        l = M[:, p] / np.sqrt(dmax)
+        l = M[:, int(p)] / np.sqrt(dmax)
         Ls.append(l)
-        M -= np.outer(l, l)
-        diag = np.maximum(np.diag(M), 0.0)
-    L = np.asarray(Ls).reshape(len(Ls), n, n)
+        M.sub_(torch.outer(l, l))
+        diag = torch.clamp(torch.diagonal(M), min=0.0)
+    if not Ls:
+        return M.new_zeros((0, n, n))
+    L = torch.stack(Ls).reshape(len(Ls), n, n)
     # symmetrize (pq) since eri has (pq|rs) = (qp|rs) for real orbitals
-    return 0.5 * (L + L.transpose(0, 2, 1))
+    return 0.5 * (L + L.transpose(1, 2))
 
 
 def _rotate_chol(L, C):

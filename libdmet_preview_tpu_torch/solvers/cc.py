@@ -19,8 +19,10 @@ spin-blocked site-basis integrals:
 
 in the DMET chemist convention [aa, bb, ab].
 
-The tailored solver (TCCSD) and the frozen / masked amplitude solves it
-needs read a CAS solver's CI vector; they come with the CAS solvers.
+The tailored solver (TCCSD) freezes the CAS-sector amplitudes read out of
+an active-space FCI vector (solvers/ci_to_cc.py) and relaxes the rest: its
+amplitude solve is a second autograd.Function (_TStarFrozen) whose backward
+is the adjoint restricted to the relaxed sector.
 """
 
 import numpy as np
@@ -431,6 +433,7 @@ def _solve_adjoint(h_so, W, nocc, t1, t2, w1, w2, tol=1e-9, max_cycle=100,
     matvec, rmatvec = _adjoint_operators(h_so, W, nocc, t1, t2, D1, D2,
                                          freeze_t1=freeze_t1, mp2=mp2)
     count = {"matvec": 0}
+    _solve_adjoint.calls += 1
 
     def split(x):
         return x[:n1].reshape(s1), x[n1:].reshape(s2)
@@ -490,12 +493,15 @@ def _solve_adjoint(h_so, W, nocc, t1, t2, w1, w2, tol=1e-9, max_cycle=100,
 
 
 _solve_adjoint.last = None
+_solve_adjoint.calls = 0     # adjoint solves since import (or a reset)
 
 
 def _adjoint_fallbacks(A, rmatvec, split, x, b, res_norm, bnorm, tol, ntot,
                        branch):
     """The rare paths behind a stalled Richardson iteration, through scipy
-    on the host (each matvec copies its vector to the device and back)."""
+    on the host (each matvec copies its vector to the device and back):
+    GMRES, then LSMR where rmatvec is given, then (small systems) a dense
+    solve."""
     from scipy.sparse.linalg import LinearOperator, gmres, lsmr
     dev, dtype = b.device, b.dtype
 
@@ -524,7 +530,7 @@ def _adjoint_fallbacks(A, rmatvec, split, x, b, res_norm, bnorm, tol, ntot,
     r2 = float(np.linalg.norm(mv(x2) - bh))
     if r2 < res_norm:
         xh, res_norm, branch = x2, r2, "gmres"
-    if res_norm > 1e-6 * bnorm:
+    if res_norm > 1e-6 * bnorm and rmatvec is not None:
         # Krylov stall on an indefinite / defective adjoint (a zero EOM
         # eigenvalue makes the Jacobian singular, and if b overlaps the
         # cokernel the lambda equations are inconsistent -- CC response
@@ -623,6 +629,187 @@ def _e_tot_mp2(h1a, h1b, g_aa, g_bb, g_ab, Ca, Cb, na, nb, opts=None):
     return _e_ref(h_so, W, nocc) + 0.25 * torch.sum(Woovv * (Woovv / D2))
 
 
+# tailored CC: frozen CAS amplitudes, relaxed complement -----------------
+
+def _solve_amplitudes_frozen(h_so, W, m1, t1f, m2, t2f, nocc, tol=1e-9,
+                             max_cycle=100, diis_space=8):
+    """Fixed point with frozen amplitude sectors (tailored CC), on the
+    device of h_so: entries where m == 1 stay at the supplied values; only
+    the complement relaxes.  Returns (t1, t2, converged);
+    _solve_amplitudes_frozen.last holds the iterations and the final
+    max|R|."""
+    with torch.no_grad():
+        D1, D2 = _denominators(h_so, W, nocc)
+        f1, f2 = m1 > 0, m2 > 0
+        t1 = torch.where(f1, t1f, torch.zeros_like(t1f))
+        t2 = torch.where(f2, t2f, W[:nocc, :nocc, nocc:, nocc:] / D2)
+        diis = _AmpDIIS([tuple(t1.shape), tuple(t2.shape)],
+                        space=diis_space)
+        conv = False
+        rnorm = float("inf")
+        it = -1
+        for it in range(max_cycle):
+            R1, R2 = _residual(t1, t2, h_so, W, nocc)
+            R1 = torch.where(f1, torch.zeros_like(R1), R1)
+            R2 = torch.where(f2, torch.zeros_like(R2), R2)
+            rn = torch.max(torch.abs(R1)) + torch.max(torch.abs(R2))
+            s1, s2 = R1 / D1, R2 / D2
+            (t1, t2), (rnorm,) = diis.update([t1 + s1, t2 + s2], [s1, s2],
+                                             scalars=(rn,))
+            t1 = torch.where(f1, t1f, t1)
+            t2 = torch.where(f2, t2f, t2)
+            log.debug(1, "TCC amplitudes: iteration %3d max|R| = %.3e",
+                      it, rnorm)
+            if rnorm < tol:
+                conv = True
+                break
+    if not conv:
+        log.warn("tailored CC amplitudes not converged: max|R| = %.3e",
+                 rnorm)
+    _solve_amplitudes_frozen.last = {"iterations": it + 1, "max|R|": rnorm,
+                                     "converged": conv}
+    return t1, t2, conv
+
+
+_solve_amplitudes_frozen.last = None
+
+
+def _masked_adjoint_operator(h_so, W, nocc, t1, t2, m1, m2):
+    """The tailored adjoint operator x -> A x on the relaxed amplitude
+    sector and the identity on the frozen entries (m == 1), as a flat
+    vector map, with its (split, D1, D2): the graph of the residual at
+    (t1, t2) is built once and each matvec is one vjp through it."""
+    with torch.no_grad():
+        D1, D2 = _denominators(h_so, W, nocc)
+    f1, f2 = m1 > 0, m2 > 0
+    s1, s2 = tuple(t1.shape), tuple(t2.shape)
+    n1 = int(np.prod(s1))
+    t1g = t1.detach().clone().requires_grad_(True)
+    t2g = t2.detach().clone().requires_grad_(True)
+    with torch.enable_grad():
+        R = _residual(t1g, t2g, h_so, W, nocc)
+
+    def split(x):
+        return x[:n1].reshape(s1), x[n1:].reshape(s2)
+
+    def A(x):
+        # the antisymmetric-subspace projector commutes with the masking:
+        # the CAS freeze masks are invariant under the ij / ab
+        # transpositions
+        l1, l2 = split(x)
+        l1_in = torch.where(f1, torch.zeros_like(l1), l1 / D1)
+        l2_in = torch.where(f2, torch.zeros_like(l2), _P2(l2) / D2)
+        g1, g2 = _grad_or_zeros(R, (t1g, t2g), (l1_in, l2_in),
+                                retain_graph=True)
+        g1 = torch.where(f1, l1, g1)
+        g2 = torch.where(f2, l2, _P2(g2))
+        return torch.cat([g1.reshape(-1), g2.reshape(-1)])
+
+    return A, split, D1, D2
+
+
+def _solve_adjoint_masked(h_so, W, nocc, t1, t2, w1, w2, m1, m2, tol=1e-9,
+                          max_cycle=100, diis_space=8):
+    """Adjoint linear solve on the relaxed amplitude sector: identity on
+    the frozen entries (lam there = 0).  DIIS-accelerated Richardson on
+    the device, then GMRES and (small systems) a dense solve on the host.
+    _solve_adjoint_masked.last holds the matvecs, the final relative
+    residual and the branch that ended the latest call; .calls counts the
+    solves."""
+    _solve_adjoint_masked.calls += 1
+    A_, split, D1, D2 = _masked_adjoint_operator(h_so, W, nocc, t1, t2,
+                                                  m1, m2)
+    f1, f2 = m1 > 0, m2 > 0
+    ntot = t1.numel() + t2.numel()
+    count = {"matvec": 0}
+
+    def A(x):
+        count["matvec"] += 1
+        return A_(x)
+
+    with torch.no_grad():
+        b = -torch.cat([w1.reshape(-1), w2.reshape(-1)])
+        bnorm = max(1.0, float(torch.linalg.norm(b)))
+        diis = _AmpDIIS([(ntot,)], space=diis_space)
+        x = b.clone()
+        res_norm = float("inf")
+        branch = "diis-richardson"
+        for _ in range(max_cycle):
+            e = A(x) - b
+            (x_new,), (ee,) = diis.update([x - e], [e],
+                                          scalars=(torch.dot(e, e),))
+            res_norm = float(np.sqrt(ee))
+            log.debug(1, "TCC adjoint: matvec %3d |A x - b| = %.3e",
+                      count["matvec"], res_norm)
+            if res_norm < max(tol, 1e-10) * bnorm:
+                break
+            x = x_new
+    if res_norm > 1e-8 * bnorm:
+        x, res_norm, branch = _adjoint_fallbacks(
+            A, None, split, x, b, res_norm, bnorm, tol, ntot, branch)
+    if res_norm > 1e-6 * bnorm:
+        log.warn("tailored CC adjoint solve residual %.3e", res_norm)
+    _solve_adjoint_masked.last = {"matvecs": count["matvec"],
+                                  "residual": res_norm / bnorm,
+                                  "branch": branch}
+    l1, l2 = split(x)
+    return (torch.where(f1, torch.zeros_like(l1), l1 / D1),
+            torch.where(f2, torch.zeros_like(l2), l2 / D2))
+
+
+_solve_adjoint_masked.last = None
+_solve_adjoint_masked.calls = 0
+
+
+class _TStarFrozen(torch.autograd.Function):
+    """(h_so, W) -> the tailored amplitudes (t1, t2) with the entries
+    where (m1, m2) are set frozen at (t1f, t2f).  Forward: the relaxation
+    of the external amplitudes, outside autograd.  Backward: the adjoint
+    restricted to the relaxed sector (the frozen amplitudes do not respond
+    to the integrals at a fixed CAS solution: their cotangents are dropped
+    and the frozen inputs receive none), then the vector-Jacobian product
+    of the residual with respect to (h_so, W) at fixed amplitudes."""
+
+    @staticmethod
+    def forward(ctx, h_so, W, m1, t1f, m2, t2f, nocc, opts):
+        with stage("TCC amplitudes", h_so.device):
+            t1, t2, _ = _solve_amplitudes_frozen(
+                h_so.detach(), W.detach(), m1, t1f, m2, t2f, nocc,
+                **dict(opts))
+        ctx.save_for_backward(h_so, W, m1, m2, t1, t2)
+        ctx.nocc, ctx.opts = nocc, opts
+        return t1, t2
+
+    @staticmethod
+    def backward(ctx, w1, w2):
+        h_so, W, m1, m2, t1, t2 = (x.detach() for x in ctx.saved_tensors)
+        nocc = ctx.nocc
+        w1 = torch.where(m1 > 0, torch.zeros_like(w1), w1)
+        w2 = torch.where(m2 > 0, torch.zeros_like(w2), w2)
+        with stage("TCC adjoint", h_so.device):
+            lam1, lam2 = _solve_adjoint_masked(h_so, W, nocc, t1, t2, w1, w2,
+                                               m1, m2, **dict(ctx.opts))
+        with stage("TCC residual vjp to integrals", h_so.device):
+            h_ = h_so.requires_grad_(True)
+            W_ = W.requires_grad_(True)
+            with torch.enable_grad():
+                R = _residual(t1, t2, h_, W_, nocc)
+            gh, gW = _grad_or_zeros(R, (h_, W_), (lam1, lam2))
+        return gh, gW, None, None, None, None, None, None
+
+
+def _e_tot_tcc(h1a, h1b, g_aa, g_bb, g_ab, Ca, Cb, na, nb, opts,
+               m1, t1f, m2, t2f):
+    nocc = int(na + nb)
+    with stage("CC ao2mo", h1a.device):
+        h_so, g_chem = _mo_so_integrals((h1a, h1b), (g_aa, g_bb, g_ab),
+                                        Ca, Cb, na, nb)
+        W = _antisymmetrize(g_chem)
+        del g_chem
+    t1, t2 = _TStarFrozen.apply(h_so, W, m1, t1f, m2, t2f, nocc, opts)
+    return _e_ref(h_so, W, nocc) + _ecorr(t1, t2, h_so, W, nocc)
+
+
 # ----------------------------------------------------------------------
 # solver classes (contract: run / run_dmet_ham / make_rdm2)
 # ----------------------------------------------------------------------
@@ -717,11 +904,11 @@ class CCSD(object):
         Ca, Cb, na, nb = self._reference(Ham, nelec, dm0)
         return self._energy_rdms(Ham, Ca, Cb, na, nb)
 
-    def _energy_rdms(self, Ham, Ca, Cb, na, nb, opts=None):
+    def _energy_rdms(self, Ham, Ca, Cb, na, nb, opts=None, extra=()):
         """Total energy + response RDMs at fixed MO coefficients (the
         tail of run(); also the finalizer for orbital-optimized solvers,
         where the orbital-response term of the relaxed RDMs vanishes at
-        the stationary point)."""
+        the stationary point).  extra: further arguments of energy_fn."""
         self._mo = (Ca, Cb, na, nb)
         if opts is None:
             opts = self._opts()
@@ -730,7 +917,8 @@ class CCSD(object):
         # derivative
         blocks = [x.detach().requires_grad_(True) for x in self._unpack(Ham)]
         val = self.__class__.energy_fn(*blocks, as_f64(Ca, self.device),
-                                       as_f64(Cb, self.device), na, nb, opts)
+                                       as_f64(Cb, self.device), na, nb, opts,
+                                       *extra)
         with stage("CC gradient (adjoint and vjp inside)", self.device):
             grads = torch.autograd.grad(val, blocks)
         E = float(val.detach()) + float(Ham.H0)
@@ -890,14 +1078,90 @@ class BCCSD(CCSD):
 
 
 class TCCSD(CCSD):
-    """Tailored CCSD: the CAS-sector amplitudes come from a CAS-FCI wave
-    function and stay frozen while the external ones relax."""
+    """Tailored CCSD: the CAS-sector T1/T2 are read out of a CAS-FCI wave
+    function (solvers/ci_to_cc.py) and frozen; the external amplitudes
+    relax by CCSD.  CAS = the ncas canonical orbitals around the Fermi
+    level of each spin channel (per-spin windows on unrestricted
+    references, the UCASCI frame), solved by spin-dependent FCI on the
+    device.  This is the static-correlation-safe CC for spin-polarized
+    d-block embeddings where plain UCCSD stalls on the near-degenerate d
+    manifold.  RDMs are response densities at fixed CAS amplitudes."""
+
+    energy_fn = staticmethod(_e_tot_tcc)
 
     def __init__(self, ncas, nelecas, restricted=True, Sz=0, **kwargs):
-        raise NotImplementedError(
-            "TCCSD: the tailored solver needs the CI-to-CC amplitude "
-            "extraction of a CAS solver; it comes with the CAS solvers "
-            "(Slice 5)")
+        super().__init__(restricted=restricted, Sz=Sz, **kwargs)
+        # the CAS windows are per spin: a ghf flag is ignored, as in the
+        # JAX package
+        self.ghf = False
+        self.frozen = None
+        self.ncas = ncas
+        if isinstance(nelecas, (tuple, list)):
+            self.na_cas, self.nb_cas = nelecas
+            self.nelecas = self.na_cas + self.nb_cas
+        else:
+            self.nelecas = nelecas
+            self.na_cas = nelecas // 2 + nelecas % 2
+            self.nb_cas = nelecas - self.na_cas
+
+    def run(self, Ham, nelec=None, dm0=None, calc_rdm2=False, **kwargs):
+        from libdmet_preview_tpu_torch.solvers.casci import (
+            _core_embed_uhf, _cas_eri_uhf)
+        from libdmet_preview_tpu_torch.solvers.ci_to_cc import ci_to_cc_so
+        from libdmet_preview_tpu_torch.solvers.fci import fci_kernel
+        if nelec is None:
+            raise ValueError("TCCSD.run requires nelec")
+        Ca, Cb, na, nb = self._reference(Ham, nelec, dm0)
+        n = Ham.norb
+        nocc = na + nb
+        dev = self.device
+
+        # --- CAS-FCI in the per-spin canonical MO bases, core-veff
+        # dressed (spin-dependent active Hamiltonian; restricted
+        # references reduce to the same equations with Ca == Cb)
+        ncas = self.ncas
+        na_cas, nb_cas = self.na_cas, self.nb_cas
+        nca, ncb = na - na_cas, nb - nb_cas
+        log.eassert(nca >= 0 and ncb >= 0 and max(nca, ncb) + ncas <= n,
+                    "TCCSD active window (%d, (%d,%d)) incompatible "
+                    "with nelec=(%d,%d), norb=%d", ncas, na_cas, nb_cas,
+                    na, nb, n)
+        blocks = self._unpack(Ham)
+        Cat, Cbt = as_f64(Ca, dev), as_f64(Cb, dev)
+        with stage("TCC CAS transform", dev):
+            h_a, h_b, _, _, _ = _core_embed_uhf(
+                blocks, Cat[:, :nca], Cbt[:, :ncb], 0.0)
+            Aa, Ab = Cat[:, nca:nca + ncas], Cbt[:, ncb:ncb + ncas]
+            h_a, h_b = Aa.T @ h_a @ Aa, Ab.T @ h_b @ Ab
+            g_cas_aa, g_cas_bb, g_cas_ab = _cas_eri_uhf(blocks[2:], Aa, Ab)
+        with stage("TCC CAS FCI", dev):
+            self.cas_counter = {"sigma": 0}
+            _, ci = fci_kernel((h_a, h_b), (g_cas_aa, g_cas_ab, g_cas_bb),
+                               ncas, (na_cas, nb_cas), ecore=0.0, tol=1e-12,
+                               device=dev, counter=self.cas_counter)
+        with stage("TCC CI to CC", dev):
+            t1_cas, t2_cas = ci_to_cc_so(ci, ncas, (na_cas, nb_cas))
+
+        # --- embed the CAS amplitudes into the full spin-orbital layout
+        nva, nvb = n - na, n - nb
+        occ_map = ([na - na_cas + i for i in range(na_cas)]
+                   + [na + (nb - nb_cas) + i for i in range(nb_cas)])
+        vir_map = ([i for i in range(ncas - na_cas)]
+                   + [nva + i for i in range(ncas - nb_cas)])
+        t1f = np.zeros((nocc, nva + nvb))
+        m1 = np.zeros_like(t1f)
+        t1f[np.ix_(occ_map, vir_map)] = t1_cas
+        m1[np.ix_(occ_map, vir_map)] = 1.0
+        t2f = torch.zeros((nocc, nocc, nva + nvb, nva + nvb),
+                          dtype=torch.float64, device=dev)
+        m2 = torch.zeros_like(t2f)
+        ix = [torch.as_tensor(a, device=dev)
+              for a in np.ix_(occ_map, occ_map, vir_map, vir_map)]
+        t2f[ix[0], ix[1], ix[2], ix[3]] = as_f64(t2_cas, dev)
+        m2[ix[0], ix[1], ix[2], ix[3]] = 1.0
+        # the masks and the frozen CAS amplitudes of the last run
+        self.frozen = (as_f64(m1, dev), as_f64(t1f, dev), m2, t2f)
+        return self._energy_rdms(Ham, Ca, Cb, na, nb, extra=self.frozen)
 
 
 UTCCSD = GTCCSD = TCCSD

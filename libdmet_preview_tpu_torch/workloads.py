@@ -11,10 +11,17 @@ JAX package on the CPU, in one place so that both run the same protocol:
   recorded state), and the UHF non-interacting bath;
 * the k-space stripe HF on random translation-symmetric integrals at
   make_diamond_lattice3's width (make_kscf_workload, run_kscf) and its
-  dense-supercell check at a small mesh.
+  dense-supercell check at a small mesh;
+* the systems of the correlated solvers' oracles (the CAS family, tailored
+  CC, OO-CCD, static GW) as port Integrals with the JAX suite's NumPy
+  draws, and the fake executables of the external-solver bridges, which
+  chip_smoke.py phase 12 runs on the card and the tests hold to the JAX
+  suite's systems and fakes.
 """
 
 import copy
+import os
+import textwrap
 
 import numpy as np
 import torch
@@ -270,7 +277,7 @@ def _tr_stripe_mesh(rng, lat, n, scale):
 
 
 def make_kscf_workload(kmesh, nlo=KSCF["nlo"], nfac=KSCF["nfac"],
-                       seed=KSCF["seed"], device=torch.device("cpu")):
+                       seed=KSCF["seed"], device=torch.device("cuda")):
     """Random translation-symmetric integrals on a 3D mesh, NumPy from
     `seed`: nfac random symmetric real-space DF factors l_x on the
     supercell (decaying with each cell's distance from the origin) and all
@@ -308,7 +315,8 @@ def make_kscf_workload(kmesh, nlo=KSCF["nlo"], nfac=KSCF["nfac"],
     return lat, h_st, S_st, eriF, B, N * KSCF["nelec_cell"]
 
 
-def kscf_dense_check(kmesh=KSCF["check_kmesh"], device=torch.device("cpu")):
+def kscf_dense_check(kmesh=KSCF["check_kmesh"],
+                     device=torch.device("cuda")):
     """kscf_stripe_hf against the dense supercell RHF (solvers.scf.SCF with
     the overlap) of the same construction; returns |E_k - E_dense|."""
     from libdmet_preview_tpu_torch.models.abinitio import kscf_stripe_hf
@@ -361,3 +369,403 @@ def run_kscf(work, device, info=None):
                 "tr_diff": lat._sub_tab, "h_st": h_st}
         abinitio.update_ham_eriF(Lat, meta, to_host(rho_lo))
     return E, rho_st, fock_st, meta["fock_lo_R"], to_host(f_lo)
+
+
+# ----------------------------------------------------------------------
+# the correlated solvers' oracle systems and the bridges' fake executables
+# ----------------------------------------------------------------------
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def np_integral(h1, g, H0=0.0):
+    """A port Integral of NumPy blocks: one block restricted, else per
+    spin ([h_a, h_b], [g_aa, g_bb, g_ab])."""
+    from libdmet_preview_tpu_torch.models.integral import Integral
+    h1, g = np.asarray(h1, dtype=float), np.asarray(g, dtype=float)
+    if h1.ndim == 2:
+        return Integral(h1.shape[0], True, False, H0, {"cd": h1[None]},
+                        {"ccdd": g[None]})
+    return Integral(h1.shape[-1], False, False, H0, {"cd": h1},
+                    {"ccdd": g})
+
+
+def hubbard_integral(n, U, stag=0.0, ring=False, onsite=None):
+    """Open (or ring) n-site Hubbard chain (tests/test_cc.py's
+    hubbard_integral); a staggered field of opposite sign per spin makes it
+    unrestricted (its spin_polarized_integral), `onsite` adds a diagonal
+    (tests/test_solvers_extra.py's symmetry-broken UCASSCF ring)."""
+    h = np.zeros((n, n))
+    for i in range(n - (0 if ring else 1)):
+        h[i, (i + 1) % n] = h[(i + 1) % n, i] = -1.0
+    if onsite is not None:
+        h += np.diag(onsite)
+    g = np.zeros((n,) * 4)
+    for i in range(n):
+        g[i, i, i, i] = U
+    if not stag:
+        return np_integral(h, g)
+    s = np.diag([stag * (-1) ** i for i in range(n)])
+    return np_integral([h + s, h - s], [g, g, g])
+
+
+def random_integral(n, seed, u=0.12):
+    """tests/test_cc.py's random restricted embedded Hamiltonian (the same
+    NumPy draws)."""
+    rng = np.random.RandomState(seed)
+    h = rng.randn(n, n) * 0.1
+    h = h + h.T + np.diag(np.arange(n, dtype=float))
+    A = rng.randn(n * (n + 1) // 2, n, n) * (u / n)
+    A = A + A.transpose(0, 2, 1)
+    return np_integral(h, np.einsum("Lpq, Lrs -> pqrs", A, A), 0.3)
+
+
+def oo_integral(n=4, U=2.0, H0=0.3):
+    """tests/test_oo.py's restricted Hamiltonian (the same NumPy draws)."""
+    rng = np.random.RandomState(7)
+    h = np.zeros((n, n))
+    for i in range(n - 1):
+        h[i, i + 1] = h[i + 1, i] = -1.0
+    h += np.diag([0.0, 0.4, -0.3, 0.2][:n])
+    g = np.zeros((n, n, n, n))
+    for i in range(n):
+        g[i, i, i, i] = U
+    p = 0.1 * rng.rand(n, n, n, n)
+    p = p + p.transpose(1, 0, 2, 3)
+    p = p + p.transpose(0, 1, 3, 2)
+    p = p + p.transpose(2, 3, 0, 1)
+    return np_integral(h, g + 0.05 * p, H0)
+
+
+def spin_orbital_integral(Ham):
+    """The spin-orbital (GHF-frame) expansion of a restricted Integral
+    (tests/test_oo.py's GHF case)."""
+    n = Ham.norb
+    h, g = np.asarray(Ham.H1["cd"][0]), np.asarray(Ham.H2["ccdd"][0])
+    H1 = np.zeros((2 * n, 2 * n))
+    H1[:n, :n] = H1[n:, n:] = h
+    G = np.zeros((2 * n,) * 4)
+    for a in (slice(0, n), slice(n, 2 * n)):
+        for b in (slice(0, n), slice(n, 2 * n)):
+            G[a, a, b, b] = g
+    return np_integral(H1, G, float(Ham.H0))
+
+
+def gso_ring(nao=4, U=3.0):
+    """The ph-transformed Hubbard ring of tests/test_solvers_extra.py's
+    GCASCI / GCASSCF tests, through the port's ops.spinless."""
+    from libdmet_preview_tpu_torch.ops import spinless
+    h = hubbard_integral(nao, 0.0, ring=True).H1["cd"][0]
+    g = np.zeros((nao,) * 4)
+    for i in range(nao):
+        g[i, i, i, i] = U
+    mu = U / 2.0
+    GH1_c, GH0 = spinless.transform_H1_k((h[None], np.zeros_like(h)[None]))
+    GH1 = spinless.combine_H1_k(GH1_c)
+    GV2, GV1, GV0 = spinless.transform_H2_local(g)
+    nso = 2 * nao
+    H1 = np.array(GH1[0][0])
+    H1[:nao, :nao] += GV1[0]
+    H1[nao:, nao:] += GV1[1]
+    H1 += spinless.mu_matrix(mu, nao)
+    eye = torch.eye(nso, dtype=torch.float64).reshape(1, nso, nso)
+    g_so = spinless.transform_eri_local_gso(eye[:, :nao, :], eye[:, nao:, :],
+                                            GV2).numpy()
+    return np_integral(H1, g_so, GH0 + GV0 - mu * nao)
+
+
+def random_uhf_fock():
+    """tests/test_gw.py's random unrestricted Fock matrices and ERI (the
+    same draws): (fock (2, 4, 4), eri (4,)*4) for 2 alpha and 1 beta
+    electrons."""
+    rng = np.random.RandomState(2)
+    n = 4
+    A = rng.randn(6, n, n)
+    A = A + A.transpose(0, 2, 1)
+    eri = np.einsum("xpq, xrs -> pqrs", A, A)
+    h = rng.randn(n, n)
+    h = h + h.T
+    dm = []
+    for no in (2, 1):
+        c = np.linalg.eigh(h)[1]
+        dm.append(c[:, :no] @ c[:, :no].T)
+    vj = np.einsum("pqrs, rs -> pq", eri, dm[0] + dm[1])
+    return np.asarray([h + vj - np.einsum("prqs, rs -> pq", eri, dm[s])
+                       for s in range(2)]), eri
+
+
+def bare_exchange(fock, eri, nocc_s):
+    """-K of each spin's Fock eigen-orbitals (tensors): the bare limit of
+    get_vsig_emb."""
+    out = []
+    for F, no in zip(fock, nocc_s):
+        c = torch.linalg.eigh(F)[1][:, :no]
+        out.append(-torch.einsum("prqs, rs -> pq", eri, c @ c.T))
+    return torch.stack(out)
+
+
+def write_fake(tmp, name, body):
+    """An executable script `name` in the directory `tmp`, run by this
+    interpreter, from a body with a %(repo)r slot; returns its path."""
+    import sys
+    path = os.path.join(tmp, name)
+    with open(path, "w") as f:
+        f.write("#!%s\n" % sys.executable)
+        f.write(body % {"repo": REPO})
+    os.chmod(path, 0o755)
+    return path
+
+
+# tests/test_dmrg_bridge.py's fake Block binary as it is there (held equal
+# to it by tests/test_torch_casci.py)
+FAKE_BLOCK = textwrap.dedent("""\
+    #!/usr/bin/env python
+    # Self-contained fake Block binary: parses dmrg.conf + FCIDUMP and
+    # solves the problem with an INDEPENDENT dense numpy FCI (no jax, no
+    # package import -- a genuine cross-check of the bridge, and ~10 s
+    # faster per call than importing the library stack).
+    import sys, os, re, itertools
+    import numpy as np
+
+    conf_path = sys.argv[-1]
+    conf = open(conf_path).read()
+    nelec = int(re.search(r"nelec (\\d+)", conf).group(1))
+    spin = int(re.search(r"spin (\\d+)", conf).group(1))
+    assert "schedule" in conf and "sweep_tol" in conf
+    assert "onepdm" in conf
+    fcidump = re.search(r"orbitals (.*)", conf).group(1).strip()
+    prefix = re.search(r"prefix (.*)", conf).group(1).strip()
+
+    # --- minimal FCIDUMP reader (chemist notation, 8-fold symm) ---
+    txt = open(fcidump).read()
+    m = re.search(r"NORB\\s*=\\s*(\\d+)", txt)
+    norb = int(m.group(1))
+    body = txt[txt.upper().index("&END") + 4:].split()
+    h1 = np.zeros((norb, norb))
+    eri = np.zeros((norb,) * 4)
+    ecore = 0.0
+    for off in range(0, len(body), 5):
+        v, i, j, k, l = (float(body[off]),) + tuple(
+            int(x) for x in body[off + 1:off + 5])
+        if i == j == k == l == 0:
+            ecore = v
+        elif k == l == 0:
+            p, q = i - 1, j - 1
+            h1[p, q] = h1[q, p] = v
+        else:
+            p, q, r, s = i - 1, j - 1, k - 1, l - 1
+            for (a, b) in ((p, q), (q, p)):
+                for (c, d) in ((r, s), (s, r)):
+                    eri[a, b, c, d] = eri[c, d, a, b] = v
+
+    # --- dense FCI over (na, nb) determinants ---
+    na = (nelec + spin) // 2
+    nb = nelec - na
+    def strings(n, k):
+        return [frozenset(c) for c in itertools.combinations(range(n), k)]
+    SA, SB = strings(norb, na), strings(norb, nb)
+    det = [(a, b) for a in SA for b in SB]
+    idx = {d: i for i, d in enumerate(det)}
+    nd = len(det)
+
+    def sign_excite(occ, p, q):
+        # remove q, add p in the SORTED occupation list; fermion sign
+        occ = sorted(occ)
+        iq = occ.index(q)
+        occ2 = occ[:iq] + occ[iq + 1:]
+        ip = sum(1 for x in occ2 if x < p)
+        return (-1) ** (iq + ip), frozenset(occ2 + [p])
+
+    H = np.zeros((nd, nd))
+    for I, (a, b) in enumerate(det):
+        # diagonal
+        e = sum(h1[p, p] for p in a) + sum(h1[p, p] for p in b)
+        occs = [(a, a), (b, b)]
+        for p in a:
+            for q in a:
+                e += 0.5 * (eri[p, p, q, q] - eri[p, q, q, p])
+            for q in b:
+                e += eri[p, p, q, q]
+        for p in b:
+            for q in b:
+                e += 0.5 * (eri[p, p, q, q] - eri[p, q, q, p])
+        H[I, I] = e
+        # single excitations (same spin channel)
+        for chan, occ, other in (("a", a, b), ("b", b, a)):
+            for q in occ:
+                for p in range(norb):
+                    if p in occ:
+                        continue
+                    sgn, occ2 = sign_excite(occ, p, q)
+                    d2 = (occ2, b) if chan == "a" else (a, occ2)
+                    J = idx[d2]
+                    val = h1[p, q]
+                    for r in occ:
+                        if r == q:
+                            continue
+                        val += eri[p, q, r, r] - eri[p, r, r, q]
+                    for r in other:
+                        val += eri[p, q, r, r]
+                    H[J, I] += sgn * val
+        # double excitations: same-spin (aa, bb)
+        for chan, occ in (("a", a), ("b", b)):
+            for q in occ:
+                for s in occ:
+                    if s <= q:
+                        continue
+                    for p in range(norb):
+                        if p in occ:
+                            continue
+                        for r in range(norb):
+                            if r in occ or r <= p:
+                                continue
+                            s1, o1 = sign_excite(occ, p, q)
+                            s2, o2 = sign_excite(o1, r, s)
+                            d2 = (o2, b) if chan == "a" else (a, o2)
+                            J = idx[d2]
+                            val = eri[p, q, r, s] - eri[r, q, p, s]
+                            H[J, I] += s1 * s2 * val
+        # opposite-spin doubles
+        for q in a:
+            for p in range(norb):
+                if p in a:
+                    continue
+                s1, a2 = sign_excite(a, p, q)
+                for s in b:
+                    for r in range(norb):
+                        if r in b:
+                            continue
+                        s2, b2 = sign_excite(b, r, s)
+                        J = idx[(a2, b2)]
+                        H[J, I] += s1 * s2 * eri[p, q, r, s]
+
+    ew, ev = np.linalg.eigh(H)
+    e = ew[0] + ecore
+    c = ev[:, 0]
+    # spin-resolved 1-pdm <p+ q>
+    rdm_a = np.zeros((norb, norb))
+    rdm_b = np.zeros((norb, norb))
+    for I, (a, b) in enumerate(det):
+        for p in a:
+            rdm_a[p, p] += c[I] * c[I]
+        for p in b:
+            rdm_b[p, p] += c[I] * c[I]
+        for chan, occ in (("a", a), ("b", b)):
+            for q in occ:
+                for p in range(norb):
+                    if p in occ:
+                        continue
+                    sgn, occ2 = sign_excite(occ, p, q)
+                    d2 = (occ2, b) if chan == "a" else (a, occ2)
+                    J = idx[d2]
+                    if chan == "a":
+                        rdm_a[p, q] += sgn * c[J] * c[I]
+                    else:
+                        rdm_b[p, q] += sgn * c[J] * c[I]
+
+    so = np.zeros((2 * norb, 2 * norb))
+    so[::2, ::2] = rdm_a
+    so[1::2, 1::2] = rdm_b
+    os.makedirs(os.path.join(prefix, "node0"), exist_ok=True)
+    with open(os.path.join(prefix, "node0", "onepdm.0.0.bin"), "wb") as f:
+        f.write(b"HDR!")               # binary reader takes the TAIL
+        f.write(so.astype(np.float64).tobytes())
+
+    if "twopdm" in conf:
+        # 2-pdm via dense operator matrices A_pq = p+ q per channel:
+        # same-spin chemist G[p,q,r,s] = <p+q r+s> - d_qr <p+s>,
+        # opposite-spin G_ab[p,q,r,s] = <p+q_a r+s_b> (channels commute)
+        def op_mats(chan):
+            A = np.zeros((norb, norb, nd, nd))
+            for I, (a, b) in enumerate(det):
+                occ = a if chan == "a" else b
+                for q in occ:
+                    A[q, q, I, I] += 1.0
+                    for p in range(norb):
+                        if p in occ:
+                            continue
+                        sgn, occ2 = sign_excite(occ, p, q)
+                        d2 = (occ2, b) if chan == "a" else (a, occ2)
+                        A[p, q, idx[d2], I] += sgn
+            return A
+        Aa, Ab = op_mats("a"), op_mats("b")
+        ca = np.einsum("pqJI, I -> pqJ", Aa, c)     # A_pq |c>
+        cb = np.einsum("pqJI, I -> pqJ", Ab, c)
+        caT = np.einsum("pqJI, J -> pqI", Aa, c)    # A_pq^T |c>
+        cbT = np.einsum("pqJI, J -> pqI", Ab, c)
+        r1a = np.einsum("J, pqJ -> pq", c, ca)
+        r1b = np.einsum("J, pqJ -> pq", c, cb)
+        Gaa = (np.einsum("pqJ, rsJ -> pqrs", caT, ca)
+               - np.einsum("qr, ps -> pqrs", np.eye(norb), r1a))
+        Gbb = (np.einsum("pqJ, rsJ -> pqrs", cbT, cb)
+               - np.einsum("qr, ps -> pqrs", np.eye(norb), r1b))
+        if nb == 0:
+            out2 = Gaa[None]           # single-species (GSO) block
+        else:
+            Gab = np.einsum("pqJ, rsJ -> pqrs", caT, cb)
+            out2 = np.stack([Gaa, Gbb, Gab])
+        np.save(os.path.join(prefix, "2pdm.npy"), out2)
+    print("Sweep Energy = %%.12f" %% e)
+""")
+# a fake SHCI (Dice-style) binary: the port's FCI on the CPU behind the
+# bridge's config.json / FCIDUMP in and result.json / 1rdm.csv / 2rdm.csv
+# out
+SHCI_FAKE = r"""
+import json, sys
+import numpy as np
+sys.path.insert(0, %(repo)r)
+import torch
+from libdmet_preview_tpu_torch.models.integral import read_FCIDUMP
+from libdmet_preview_tpu_torch.solvers import FCI
+conf = json.load(open("config.json"))
+Ham = read_FCIDUMP("FCIDUMP")
+fci = FCI(restricted=True, tol=1e-12, device=torch.device("cpu"))
+rdm1, E = fci.run(Ham, nelec=conf["n_up"] + conf["n_dn"])
+json.dump({"energy_total": E}, open("result.json", "w"))
+r = rdm1[0].numpy()
+with open("1rdm.csv", "w") as f:
+    f.write("i,j,val\n")
+    for i in range(Ham.norb):
+        for j in range(i + 1):
+            f.write("%%d,%%d,%%.14g\n" %% (i, j, 2 * r[i, j]))
+if conf["get_2rdm_csv"]:
+    G = fci.make_rdm2(Ham)[0].numpy()
+    with open("2rdm.csv", "w") as f:
+        f.write("p,q,r,s,val\n")
+        for idx in np.argwhere(np.abs(G) > 1e-14):
+            f.write("%%d,%%d,%%d,%%d,%%.14g\n"
+                    %% (tuple(idx) + (G[tuple(idx)],)))
+"""
+
+# a fake AFQMC binary: the port's FCI behind the bridge's model_param.dat /
+# method_param.json, an AR(1) energy series around E (measurements.dat)
+# and the FCI rdm1 as the mixed estimator (cicj.dat)
+AFQMC_FAKE = r"""
+import json, sys
+import numpy as np
+sys.path.insert(0, %(repo)r)
+import torch
+from libdmet_preview_tpu_torch.models.integral import Integral
+from libdmet_preview_tpu_torch.solvers import FCI
+from libdmet_preview_tpu_torch.solvers.external import read_afqmc_ham
+H1, U, H0 = read_afqmc_ham("model_param.dat")
+n = H1.shape[-1]
+H2 = np.zeros((3, n, n, n, n))
+for i in range(n):
+    H2[:, i, i, i, i] = U[i]
+opts = json.load(open("method_param.json"))
+rdm1, E = FCI(restricted=False, tol=1e-12, device=torch.device("cpu")).run(
+    Integral(n, False, False, H0, {"cd": H1}, {"ccdd": H2}),
+    nelec=opts["nelec"])
+rng = np.random.default_rng(opts["seed"] %% (2 ** 31))
+x = np.zeros(4096)
+for t in range(1, 4096):
+    x[t] = 0.8 * x[t - 1] + rng.normal(0, 0.05)
+with open("measurements.dat", "w") as f:
+    for t in range(4096):
+        f.write("%%d %%.12f %%.6f\n"
+                %% (t, E + x[t], 1.0 + 0.1 * rng.random()))
+with open("cicj.dat", "w") as f:
+    for v in rdm1.numpy().ravel():
+        f.write("%%.12f 0.0 1e-4\n" %% v)
+"""

@@ -126,16 +126,18 @@ def test_lambda_sweeps_converge_to_the_exact_response():
 
 def test_default_device_is_cuda_and_tccsd_names_its_slice():
     """The solvers' default device is CUDA, with no CPU fallback: here,
-    without a card, run() raises.  TCCSD names the slice it comes with."""
+    without a card, run() raises.  TCCSD, which came with the CAS solvers
+    (Slice 5a), is no stub any more and defaults to CUDA too."""
     from libdmet_preview_tpu_torch import solvers
     for name in ("CCSD", "MP2", "CCD", "LCCSD", "LCCD", "CCSD_ITE", "BCCSD"):
         assert getattr(solvers, name)().device.type == "cuda"
+    tcc = solvers.TCCSD(ncas=2, nelecas=2)
+    assert tcc.device.type == "cuda"
     if not torch.cuda.is_available():
         Ham = port_integral(hubbard_integral(2, 1.0, True))
-        with pytest.raises((RuntimeError, AssertionError)):
-            solvers.CCSD(restricted=True).run(Ham, nelec=2)
-    with pytest.raises(NotImplementedError, match="Slice 5"):
-        solvers.TCCSD(ncas=2, nelecas=2)
+        for solver in (solvers.CCSD(restricted=True), tcc):
+            with pytest.raises((RuntimeError, AssertionError)):
+                solver.run(Ham, nelec=2)
 
 
 # ----------------------------------------------------------------------
