@@ -247,6 +247,38 @@ Phases, in order; any failure raises and the process exits non-zero:
           (Newton minimizations, gradients, HVPs), the last iteration
           replayed on the CPU (1e-8).
 
+ 13. the molecular integral engine, KS-DFT and DFT-in-DMET (ints/,
+     solvers/ksdft, ops/dftu, models/abinitio.attach_ks, the xc double
+     counting of ops/embham._emb_H1), on the H ring of workloads.DFT_RING
+     (2 atoms per cell, 3-21G, IAO + PAO against STO-6G, 4 LOs per cell):
+     13a. the JAX suite's DFT oracles at their own sizes on the card and on
+          the CPU (tests/test_dft.py, tests/test_dftu_ks.py, the derivative
+          oracle and the H2O / STO-3G anchor of tests/test_md.py, the GW
+          bare-exchange limit), each at its test's tolerance, card - CPU
+          <= 1e-8;
+     13b/c at H22 (11 cells): attach_ks with LSDA and with PBE (RKS on the
+          default 60 x 12 x 24 grid per atom), then the DFT-in-DMET loop
+          of tests/test_dft.py:139-182 (RHartreeFock -> ConstructImpHam(
+          int_bath=True) -> MuSolver -> FCI -> transformResults) with
+          exactly one symmetric syrk launch, no cross launch and no
+          plain-version call on the card: the KS energy (1e-8) and the
+          grid's electron count (1e-10), and the loop's E per cell,
+          nelecImp and rhoImp against the JAX package's values recorded in
+          workloads.DFT_JAX (1e-8, or the embedding H1's asymmetry where
+          that is larger: it floors the FCI residual);
+     13b/c at H50 (25 cells, nao = 100, 864,000 grid points), full width:
+          the native ERI core loaded; the same runs with their SCF
+          iterations, stage seconds, seconds per XC evaluation and per SCF
+          iteration, peak device memory and the idle share of one
+          iteration; the CPU's Becke weights against the card's (1e-14
+          relative), one Fock rebuilt on the CPU from the card's converged
+          density for LSDA and PBE (1e-10 relative), RKS(None, hyb=1)
+          against the lattice builder's RHF (1e-8), each loop's last
+          MuSolver step replayed on the CPU from the card's state (1e-8, or
+          the H1 asymmetry) and the card's idle share over that step, the
+          HF-limit identity of the double counting (1e-11), and the
+          symmetric kernel timed at the loop's (naux, neo).
+
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}.
 """
@@ -3591,6 +3623,547 @@ def phase_hchain_cas(device, card, ints):
     return launches
 
 
+# ----------------------------------------------------------------------
+# phase 13: the molecular integral engine, KS-DFT and DFT-in-DMET
+# ----------------------------------------------------------------------
+
+DFT_TOL = {"card vs CPU": 1e-8, "E_ks vs JAX": 1e-8, "n_grid vs JAX": 1e-10,
+           "DMET vs JAX": 1e-8, "Becke weights": 1e-14, "Fock rebuild": 1e-10,
+           "RKS(None, hyb=1) - RHF": 1e-8, "HF-limit identity": 1e-11,
+           "replay": 1e-8}
+
+
+def _in_range(x, lo, hi):
+    """<= 0 when lo < x < hi (a range oracle in the (value, None) form)."""
+    return max(lo - x, x - hi)
+
+
+def _fd_vxc(D, ao, w, xc, aog, eps=1e-6):
+    """Forward differences of E_xc (the JAX suite's tests/test_dft.py
+    oracle, restricted), symmetrized."""
+    from libdmet_preview_tpu_torch.ints.xc import eval_exc_vxc
+    e0 = eval_exc_vxc(D, ao, w, True, xc, aog)[0]
+    fd = torch.zeros_like(D)
+    for i in range(D.shape[0]):
+        for j in range(D.shape[1]):
+            Dp = D.clone()
+            Dp[i, j] += eps
+            fd[i, j] = (eval_exc_vxc(Dp, ao, w, True, xc, aog)[0] - e0) / eps
+    return 0.5 * (fd + fd.T)
+
+
+def dft_oracles(device):
+    """13a: the JAX suite's DFT oracles at its own sizes on `device`:
+    {name: (value, tolerance)}; a tolerance None means the value must be
+    below 0.  tests/test_dft.py, tests/test_dftu_ks.py, tests/test_md.py
+    and the bare-exchange limit of tests/test_gw.py:21-35."""
+    from libdmet_preview_tpu_torch.ints import grid as G, md as MD
+    from libdmet_preview_tpu_torch.ints import xc as X
+    from libdmet_preview_tpu_torch.ints.gto import Mole
+    from libdmet_preview_tpu_torch.models.integral import Integral
+    from libdmet_preview_tpu_torch.solvers import ksdft as K
+    from libdmet_preview_tpu_torch.solvers.gw import get_vsig_emb
+    from libdmet_preview_tpu_torch.solvers.scf import SCF
+    dev = dict(device=device)
+    out = {}
+    h2 = Mole([("H", (0, 0, 0)), ("H", (0, 0, 1.4))], basis="sto-6g")
+    hat = Mole([("H", (0, 0, 0))], basis="sto-6g")
+    S = torch.as_tensor(h2.intor_ovlp(), device=device)
+
+    def rhf(mol, nelec):
+        Ham = Integral(mol.nao, True, False, mol.energy_nuc(),
+                       {"cd": mol.intor_hcore()[None]},
+                       {"ccdd": mol.intor_eri()[None]},
+                       ovlp=mol.intor_ovlp())
+        m = SCF(**dev)
+        m.set_system(nelec, 0, False, True)
+        m.set_integral(Ham)
+        return m.HF(tol=1e-12, MaxIter=200)[0]
+
+    # tests/test_dft.py
+    g, w = G.becke_grid(h2, n_rad=60, **dev)
+    ao = G.eval_ao(h2, g)
+    out["grid overlap - S (max abs)"] = (
+        float(((ao * w) @ ao.T - S).abs().max()), 1e-6)
+    alpha = 0.8
+    g1, w1 = G.becke_grid(hat, n_rad=80, n_theta=14, n_phi=28, **dev)
+    N = (2 * alpha / np.pi) ** 0.75
+    ao1 = (N * torch.exp(-alpha * (g1 ** 2).sum(dim=1)))[None]
+    Cx = 0.75 * (3 / np.pi) ** (1 / 3.0)
+    I = (N ** 2 / 2) ** (4 / 3.0) * (3 * np.pi / (8 * alpha)) ** 1.5
+    ex = X.eval_exc_vxc(torch.ones((1, 1), dtype=torch.float64,
+                                   device=device), ao1, w1, xc="slater")[0]
+    out["Slater X of a Gaussian - analytic"] = (
+        ex + Cx * 2 ** (1 / 3.0) * 2 * I, 1e-12)
+    g40, w40 = G.becke_grid(h2, n_rad=40, **dev)
+    ao40, aog40 = G.eval_ao(h2, g40), G.eval_ao_grad(h2, g40)
+    rng = np.random.RandomState(0)
+    A = rng.randn(2, 2)
+    D = torch.as_tensor(A @ A.T * 0.3 + 0.4 * np.eye(2), device=device)
+    for xc in ("lsda", "pbe"):
+        v = X.eval_exc_vxc(D, ao40, w40, True, xc, aog40)[1]
+        out["v_xc %s - forward differences" % xc] = (
+            float((_fd_vxc(D, ao40, w40, xc, aog40) - v).abs().max()), 1e-6)
+    hf = K.RKS(h2, xc=None, hyb=1.0, **dev)
+    out["RKS(None, hyb=1) - RHF, H2"] = (hf.kernel()[0] - rhf(h2, 2), 1e-9)
+    vj, vk = hf._jk(hf.dm)
+    fock = torch.as_tensor(h2.intor_hcore(), device=device) + vj - 0.5 * vk
+    vs = get_vsig_emb(fock, h2.intor_eri(), 2, ovlp=h2.intor_ovlp(),
+                      screened=False, **dev)
+    out["GW bare limit + K/2 (max abs)"] = (
+        float((vs[0] + 0.5 * vk).abs().max()), 1e-9)
+    ks = K.RKS(h2, xc="lsda", **dev)
+    E_l, dm = ks.kernel()
+    out["LSDA H2 tr(D S) - 2"] = (float((dm * S).sum()) - 2.0, 1e-9)
+    out["LSDA H2 E in (-1.3, -0.9)"] = (_in_range(E_l, -1.3, -0.9), None)
+    uks = K.UKS(hat, xc="lsda", nelec=(1, 0), **dev)
+    E_u, dmu = uks.kernel()
+    out["LSDA H atom E in (-0.6, -0.3)"] = (_in_range(E_u, -0.6, -0.3),
+                                           None)
+    out["LSDA H atom max |D_beta|"] = (float(dmu[1].abs().max()), 1e-10)
+    E_l50 = K.RKS(h2, xc="lsda", n_rad=50, **dev).kernel()[0]
+    E_p50 = K.RKS(h2, xc="pbe", n_rad=50, **dev).kernel()[0]
+    out["PBE H2: E_PBE - E_LSDA"] = (E_p50 - E_l50, None)
+    out["PBE H2: |E_PBE - E_LSDA| - 0.08"] = (abs(E_p50 - E_l50) - 0.08,
+                                             None)
+    eu = {xc: K.UKS(hat, xc=xc, nelec=(1, 0), n_rad=50, **dev).kernel()[0]
+          for xc in ("lsda", "pbe")}
+    out["PBE H atom: E_PBE - E_LSDA"] = (eu["pbe"] - eu["lsda"], None)
+    out["PBE H atom: |E_PBE + 1/2| - |E_LSDA + 1/2|"] = (
+        abs(eu["pbe"] + 0.5) - abs(eu["lsda"] + 0.5), None)
+    zeta_rs = torch.as_tensor([0.5, 1.0, 2.0, 5.0, 10.0, 20.0],
+                              device=device)
+    dev_pw = 0.0
+    for z in (0.0, 0.5, 0.999):
+        zt = torch.full_like(zeta_rs, z)
+        f = X._f_zeta(zt)
+        vwn = X._vwn_eps(zeta_rs, "P") + X._vwn_eps(zeta_rs, "A") * f \
+            / X._FPP0 * (1.0 - z ** 4) + (X._vwn_eps(zeta_rs, "F")
+                                          - X._vwn_eps(zeta_rs, "P")) \
+            * f * z ** 4
+        dev_pw = max(dev_pw, float((X.pw92_eps_c(zeta_rs, zt)
+                                    - vwn).abs().max()))
+    out["PW92 - VWN5 (max abs)"] = (dev_pw, 2e-3)
+    ra = torch.as_tensor(rng.rand(50) * 2.0 + 1e-3, device=device)
+    rb = torch.as_tensor(rng.rand(50) * 2.0 + 1e-3, device=device)
+    z0 = torch.zeros_like(ra)
+    out["PBE(sigma = 0) - LDA(PW92)"] = (
+        float((X.pbe_exc_density(ra, rb, z0, z0, z0)
+               - X.ldapw_exc_density(ra, rb)).abs().max()), 1e-12)
+    pts = torch.as_tensor(np.random.RandomState(2).randn(20, 3) * 1.5,
+                          device=device)
+    for name, mol in (
+            ("Mole", Mole([("H", (0, 0, 0)), ("H", (0.2, -0.3, 1.4))],
+                          basis="sto-6g")),
+            ("MoleGeneral p/d", MD.MoleGeneral(
+                [("H", (0.1, 0.0, -0.2))], basis="pd",
+                basis_data={("H", "pd"): [(1, [(0.8, 1.0), (0.3, 0.5)]),
+                                          (2, [(0.6, 1.0)])]}))):
+        grad = G.eval_ao_grad(mol, pts)
+        err = 0.0
+        for ax in range(3):
+            dp, dm_ = pts.clone(), pts.clone()
+            dp[:, ax] += 1e-5
+            dm_[:, ax] -= 1e-5
+            fd = (G.eval_ao(mol, dp) - G.eval_ao(mol, dm_)) / 2e-5
+            err = max(err, float((fd - grad[ax]).abs().max()))
+        out["AO gradient %s - central differences" % name] = (err, 1e-8)
+    # tests/test_dftu_ks.py
+    ring = [("H", (np.cos(a) * 2.0, np.sin(a) * 2.0, 0.0))
+            for a in 2 * np.pi * np.arange(6) / 6]
+    mol6 = Mole(ring, basis="sto-6g")
+    w6, v6 = np.linalg.eigh(mol6.intor_ovlp())
+    C6 = v6 @ np.diag(w6 ** -0.5) @ v6.T
+    e0, d0 = K.RKS(mol6, xc="lsda", n_rad=40, **dev).kernel()
+    e1, d1 = K.RKSpU(mol6, C6, [[0, 1]], [0.0], xc="lsda", n_rad=40,
+                     **dev).kernel()
+    out["RKSpU(U = 0) - RKS"] = (e1 - e0, 1e-10)
+    out["RKSpU(U = 0) - RKS, max |dD|"] = (float((d1 - d0).abs().max()),
+                                          1e-8)
+    eu0 = K.UKS(mol6, xc="lsda", n_rad=40, **dev).kernel()[0]
+    eu1 = K.UKSpU(mol6, C6, [], [], xc="lsda", n_rad=40, **dev).kernel()[0]
+    out["UKSpU(no U) - UKS"] = (eu1 - eu0, 1e-10)
+    ksu = K.RKSpU(mol6, C6, [[0]], [3.0], xc="lsda", n_rad=40, **dev)
+    eu, dmu6 = ksu.kernel()
+    SC0 = torch.as_tensor(mol6.intor_ovlp() @ C6[:, 0], device=device)
+    out["+U on site 0: occupation change + 1e-3"] = (
+        float(SC0 @ dmu6 @ SC0 - SC0 @ d0 @ SC0) + 1e-3, None)
+    out["+U on site 0: -E_U"] = (-ksu.E_U, None)
+    out["+U on site 0: E(+U) - E"] = (e0 - eu, None)
+    drv = K.RKSpU(mol6, C6, [[0, 1], [2]], [0.7, 0.3], xc=None, n_rad=20,
+                  **dev)
+    A6 = rng.randn(6, 6)
+    dm6 = torch.as_tensor(A6 @ A6.T * 0.1 + 0.5 * np.eye(6), device=device)
+    _, vU = drv._plus_u(dm6)
+    fd = torch.zeros_like(dm6)
+    for i in range(6):
+        for j in range(6):
+            dp, dn = dm6.clone(), dm6.clone()
+            dp[i, j] += 1e-6
+            dn[i, j] -= 1e-6
+            fd[i, j] = (drv._plus_u(dp)[0] - drv._plus_u(dn)[0]) / 2e-6
+    out["v_U - dE_U/dD central differences"] = (
+        float((0.5 * (fd + fd.T) - vU).abs().max()), 1e-7)
+    mol2 = Mole([("H", (0, 0, 0)), ("H", (0, 0, 3.2))], basis="sto-6g")
+    w2, v2 = np.linalg.eigh(mol2.intor_ovlp())
+    C2 = v2 @ np.diag(w2 ** -0.5) @ v2.T
+    uks = K.UKSpU(mol2, C2, [[0], [1]], [2.0, 2.0], xc="lsda", n_rad=40,
+                  nelec=(1, 1), **dev)
+    dm0 = np.zeros((2, 2, 2))
+    dm0[0, 0, 0] = dm0[1, 1, 1] = 1.0
+    dmu2 = uks.kernel(dm0=dm0)[1]
+    SC2 = torch.as_tensor(mol2.intor_ovlp() @ C2, device=device)
+    m = [float(SC2[:, i] @ (dmu2[0] - dmu2[1]) @ SC2[:, i]) for i in (0, 1)]
+    out["UKSpU stretched H2: 0.3 - m_0"] = (0.3 - m[0], None)
+    out["UKSpU stretched H2: m_0 + m_1"] = (m[0] + m[1], 1e-6)
+    # tests/test_md.py
+    A_ = 1.0 / 0.52917720859
+    h2o = MD.MoleGeneral([("O", (0, 0, 0)), ("H", (0, 0, A_)),
+                          ("H", (0, A_, 0))], basis="sto-3g")
+    out["H2O / STO-3G RHF - (-74.9611711378677)"] = (
+        rhf(h2o, 10) + 74.9611711378677, 1e-8)
+    a_exp = 0.8
+    Av = np.array([0.1, -0.3, 0.2])
+    shB = MD.Shell(np.array([1.0, 0.5, -0.4]), 0, [(0.5, 1.0)])
+    shC = MD.Shell(np.array([-0.6, 0.8, 1.1]), 0, [(1.2, 1.0)])
+    shD = MD.Shell(np.array([0.4, -0.9, 0.3]), 0, [(0.9, 1.0)])
+    charges = [1.0, 2.0]
+    coords = [np.array([0.5, 0.5, 0.5]), np.array([-1.0, 0.0, 0.0])]
+    ops = {"S": lambda sh: MD.ovlp_block(sh, shB),
+           "T": lambda sh: MD.kin_block(sh, shB),
+           "V": lambda sh: MD.nuc_block(sh, shB, charges, coords),
+           "ERI": lambda sh: MD.eri_block(sh, shB, shC, shD)}
+    scale = MD.norm_cart(a_exp, (1, 0, 0)) / (MD.norm_cart(
+        a_exp, (0, 0, 0)) * 2 * a_exp)
+    err = 0.0
+    for fn in ops.values():
+        ana = np.asarray(fn(MD.Shell(Av, 1, [(a_exp, 1.0)])))
+        for d in range(3):
+            Ap, Am = Av.copy(), Av.copy()
+            Ap[d] += 1e-5
+            Am[d] -= 1e-5
+            num = (np.asarray(fn(MD.Shell(Ap, 0, [(a_exp, 1.0)])))[0]
+                   - np.asarray(fn(MD.Shell(Am, 0, [(a_exp, 1.0)])))[0]) \
+                / 2e-5 * scale
+            err = max(err, float(np.abs(ana[d] - num).max()))
+    out["p shells - centre derivatives of s shells"] = (err, 5e-9)
+    return out
+
+
+def phase_dft_oracles(device, card):
+    """13a: the DFT oracles on the card and on the CPU (each within its
+    tolerance, card - CPU <= 1e-8)."""
+    t0 = time.perf_counter()
+    res_d = dft_oracles(device)
+    t_d = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res_c = dft_oracles(torch.device("cpu"))
+    t_c = time.perf_counter() - t0
+    bad = []
+    for k, (v, tol) in res_d.items():
+        vc = res_c[k][0]
+        ok = (v < 0.0) if tol is None else abs(v) <= tol
+        print("13a %-50s card %.3e, CPU %.3e, |card - CPU| %.1e (%s)"
+              % (k, v, vc, abs(v - vc),
+                 "must be < 0" if tol is None else "tol %.0e" % tol))
+        if not ok or (tol is not None and not abs(vc) <= tol) \
+                or (tol is None and not vc < 0.0) \
+                or not abs(v - vc) <= DFT_TOL["card vs CPU"]:
+            bad.append(k)
+    print("13a DFT oracles [%s]: %.1f s on the card, %.1f s on the CPU"
+          % (card, t_d, t_c))
+    if bad:
+        raise AssertionError("13a failed: %s" % bad)
+
+
+def _h1_asym(res):
+    H1 = res["last"]["ImpHam"].H1["cd"][0]
+    return float((H1 - H1.T).abs().max())
+
+
+def dft_ring_run(Lat, meta, xc, device):
+    """attach_ks(xc) and the DFT-in-DMET loop on `device` with its syrk
+    launches counted from 0; returns a dict (ks, loop result, stage
+    seconds, seconds, launches)."""
+    from libdmet_preview_tpu_torch import workloads as wl
+    from libdmet_preview_tpu_torch.models.abinitio import attach_ks
+    from libdmet_preview_tpu_torch.ops import eri_kernels as ek
+    from libdmet_preview_tpu_torch.solvers import FCI
+    from libdmet_preview_tpu_torch.utils import timer
+    _sync(device)
+    t0 = time.perf_counter()
+    with timer.recording() as sec_ks:
+        ks = attach_ks(Lat, meta, xc=xc)
+    _sync(device)
+    t_ks = time.perf_counter() - t0
+    solver = FCI(restricted=True, tol=1e-12, device=device)
+    # the main path: counts start at 0 here
+    _sync(device)
+    ek.syrk_df.launches = 0
+    ek.syrk_df.cross_launches = 0
+    t0 = time.perf_counter()
+    with _counted_plain_calls() as plain, timer.recording() as sec:
+        res = wl.run_dft_dmet(Lat, meta, solver)
+    _sync(device)
+    return {"ks": ks, "res": res, "sec_ks": sec_ks, "sec": sec,
+            "t_ks": t_ks, "t_loop": time.perf_counter() - t0,
+            "launches": ek.syrk_df.launches,
+            "cross": ek.syrk_df.cross_launches, "plain": plain["cuda"],
+            "solver": solver}
+
+
+def _print_dft_run(label, card, run):
+    ks, res = run["ks"], run["res"]
+    n_it = max(ks.cycles, 1)
+    per = {k: sum(v) for k, v in run["sec_ks"].items()}
+    print("%s [%s]: RKS %s, E %.12f, %d SCF iterations, converged %s, %.3f "
+          "s (%.4f s per iteration in the stages: %s); DMET loop %.3f s, %d "
+          "MuSolver steps, neo %d, E/cell %.12f, nelecImp %.12f; syrk_df "
+          "launches %d (cross %d), plain-version calls on CUDA tensors %d"
+          % (label, card, ks.xc, ks.e_tot, ks.cycles, ks.converged,
+             run["t_ks"], sum(per.values()) / n_it,
+             ", ".join("%s %.4f" % (k, v / n_it) for k, v in per.items()),
+             run["t_loop"], res["steps"], res["neo"], res["E"],
+             res["nelecImp"], run["launches"], run["cross"], run["plain"]))
+    for k, v in run["sec"].items():
+        print("%s [%s]: stage %-18s %.6f s (%d calls)"
+              % (label, card, k, sum(v), len(v)))
+
+
+def phase_dft_jax_ring(device, card):
+    """13b / 13c at H22 against the JAX package's recorded values (the
+    KS energy and grid electrons, the DFT-in-DMET loop).  Returns the tri
+    kernel's launches."""
+    from libdmet_preview_tpu_torch import workloads as wl
+    natom = wl.DFT_NATOM_JAX
+    mol = wl.dft_ring_mole(natom)
+    Lat, meta = wl.dft_lattice(mol, device)
+    bad, launches = [], 0
+    for xc in wl.DFT_XC:
+        run = dft_ring_run(Lat, meta, xc, device)
+        label = "13b/c H%d %s" % (natom, xc)
+        _print_dft_run(label, card, run)
+        ref = wl.DFT_JAX[xc]
+        ks, res = run["ks"], run["res"]
+        launches += run["launches"]
+        asym = _h1_asym(res)
+        tol = max(DFT_TOL["DMET vs JAX"], asym)
+        diffs = {"E_ks": (ks.e_tot - ref["E_ks"], DFT_TOL["E_ks vs JAX"]),
+                 "n_grid": (wl.grid_electrons(ks) - ref["n_grid"],
+                            DFT_TOL["n_grid vs JAX"]),
+                 "E/cell": (res["E"] - ref["E"], tol),
+                 "nelecImp": (res["nelecImp"] - ref["nelecImp"], tol),
+                 "rhoImp": (float(np.abs(res["rhoImp"] - np.asarray(
+                     ref["rhoImp"])).max()), tol)}
+        for k, (d, t) in diffs.items():
+            print("%s: %-8s - JAX package %.3e (tol %.0e)" % (label, k, d, t))
+            if not abs(d) <= t:
+                bad.append("%s %s" % (xc, k))
+        print("%s: SCF iterations %d (JAX %d), MuSolver steps %d (JAX %d), "
+              "grid electrons %.12f (N = %d), max |H1_emb - H1_emb^T| %.2e "
+              "(the KS Fock stripes' translation asymmetry: the Becke grid "
+              "does not turn with the ring; it floors the FCI residual)"
+              % (label, ks.cycles, ref["ks_cycles"], res["steps"],
+                 ref["steps"], wl.grid_electrons(ks), mol.nelectron, asym))
+        if not (ks.converged and run["launches"] == 1 and run["cross"] == 0
+                and run["plain"] == 0):
+            bad.append("%s convergence / launches" % xc)
+    if bad:
+        raise AssertionError("13b/c H%d failed: %s" % (natom, bad))
+    return launches
+
+
+def _ks_iteration(ks):
+    """One SCF iteration of a converged RKS at its density: J/K, XC, the
+    Fock matrix and its commutator, one DIIS step (a host round trip), the
+    orthogonalized eigh and the new density."""
+    from libdmet_preview_tpu_torch.ops.diis import DIIS
+    vj, vk, exc, vxc, eU, vU = ks._fock_parts(ks.dm)
+    f = ks._h + vj + vxc + vU - 0.5 * ks.hyb * vk
+    err = f @ ks.dm @ ks._S - ks._S @ ks.dm @ f
+    f = ks._diis(DIIS(space=8), f, err)
+    return ks._occupied_dm(ks._A, f, ks.mol.nelectron // 2)[2]
+
+
+def phase_dft_full(device, card):
+    """13b / 13c at full width (H50): KS on the card with its iterations,
+    seconds, peak memory and idle share; the CPU's Becke weights and one
+    Fock rebuilt on the CPU from the card's density; RKS(None, hyb=1)
+    against the RHF of the same integrals; the DFT-in-DMET loop with its
+    launches, its last MuSolver step replayed on the CPU, the HF-limit
+    identity, and the tri kernel timed at the loop's shape.  Returns
+    (launches, max_abs_err, the kernel's record at that shape)."""
+    from libdmet_preview_tpu_torch import workloads as wl
+    from libdmet_preview_tpu_torch.ints import native
+    from libdmet_preview_tpu_torch.ints.xc import eval_exc_vxc
+    from libdmet_preview_tpu_torch.models.abinitio import attach_ks
+    from libdmet_preview_tpu_torch.solvers import FCI
+    from libdmet_preview_tpu_torch.solvers.ksdft import RKS
+    import libdmet_preview_tpu_torch.dmet.hubbard as dmet
+    cpu = torch.device("cpu")
+    natom = wl.DFT_NATOM_FULL
+    label = "13b/c H%d" % natom
+    t0 = time.perf_counter()
+    mol = wl.dft_ring_mole(natom)
+    mol.intor_hcore()
+    mol.intor_eri()
+    t_ints = time.perf_counter() - t0
+    lib = native.get_lib()
+    print("%s: %d atoms, nao %d, %d electrons; host integrals %.2f s, the "
+          "native ERI core %s (%s)" % (label, natom, mol.nao, mol.nelectron,
+                                     t_ints, "ran" if lib else "MISSING",
+                                     native._SO.name))
+    if lib is None:
+        raise AssertionError("13b: the native ERI core did not load")
+    _sync(device)
+    t0 = time.perf_counter()
+    Lat, meta = wl.dft_lattice(mol, device)
+    _sync(device)
+    print("%s: make_h_ring_lattice (RHF, IAO + PAO, LO ERI, Cholesky "
+          "naux %d) %.2f s" % (label, Lat.chol_L.shape[0],
+                               time.perf_counter() - t0))
+    bad, launches, runs = [], 0, {}
+    torch.cuda.reset_peak_memory_stats()
+    for xc in wl.DFT_XC:
+        run = dft_ring_run(Lat, meta, xc, device)
+        runs[xc] = run
+        ks, res = run["ks"], run["res"]
+        _print_dft_run("%s %s" % (label, xc), card, run)
+        launches += run["launches"]
+        if not (ks.converged and run["launches"] == 1 and run["cross"] == 0
+                and run["plain"] == 0):
+            bad.append("%s convergence / launches" % xc)
+        # the last MuSolver step again on the CPU, from the card's state
+        rep = wl.replay_dft_dmet_step(Lat, res, FCI(restricted=True,
+                                                    tol=1e-12, device=cpu),
+                                      cpu)
+        idle = _idle_share(lambda: wl.replay_dft_dmet_step(
+            Lat, res, run["solver"], device))
+        print("%s %s [%s]: idle share of the last MuSolver step (its FCI "
+              "solves and transformResults) replayed on the card: %s"
+              % (label, xc, card, idle))
+        tol = max(DFT_TOL["replay"], _h1_asym(res))
+        for k, d in (("E/cell", rep[0] - res["E"]),
+                     ("nelecImp", rep[1] - res["nelecImp"]),
+                     ("rhoImp", float(np.abs(rep[2]
+                                             - res["rhoImp"]).max()))):
+            print("%s %s: last MuSolver step replayed on the CPU: %-8s "
+                  "|card - CPU| %.3e (tol %.0e)" % (label, xc, k, abs(d),
+                                                    tol))
+            if not abs(d) <= tol:
+                bad.append("%s replay %s" % (xc, k))
+    print("%s: peak device memory %.3f GB over the KS and DMET runs"
+          % (label, torch.cuda.max_memory_allocated() / 1e9))
+    # seconds per XC evaluation (forward + autograd) and per iteration,
+    # and the idle share of one SCF iteration
+    for xc, run in runs.items():
+        ks = run["ks"]
+        ts = []
+        for _ in range(3):
+            _sync(device)
+            t0 = time.perf_counter()
+            eval_exc_vxc(ks.dm, ks.ao_g, ks.grid[1], restricted=True, xc=xc,
+                         ao_grad=ks.ao_grad_g)
+            _sync(device)
+            ts.append(time.perf_counter() - t0)
+        ti = []
+        for _ in range(3):
+            _sync(device)
+            t0 = time.perf_counter()
+            _ks_iteration(ks)
+            _sync(device)
+            ti.append(time.perf_counter() - t0)
+        idle = _idle_share(lambda: _ks_iteration(ks))
+        print("%s %s [%s]: %d grid points; XC evaluation (forward + "
+              "autograd) %.4f s (min of 3), one SCF iteration %.4f s, idle "
+              "share of one iteration %s" % (label, xc, card,
+                                            ks.grid[0].shape[0], min(ts),
+                                            min(ti), idle))
+    # the CPU's grid, and one Fock rebuilt there from the card's densities
+    t0 = time.perf_counter()
+    ks_c = RKS(mol, xc="pbe", device=cpu)
+    h_c = torch.as_tensor(mol.intor_hcore())
+    ks_c._integrals()
+    t_c = time.perf_counter() - t0
+    w_d = runs["lsda"]["ks"].grid[1].cpu()
+    dw = float((ks_c.grid[1] - w_d).abs().max() / w_d.abs().max())
+    print("%s: CPU Becke grid, AO values and gradients, integrals %.2f s; "
+          "Becke weights max |card - CPU| / max |w| %.3e (tol %.0e)"
+          % (label, t_c, dw, DFT_TOL["Becke weights"]))
+    if not dw <= DFT_TOL["Becke weights"]:
+        bad.append("Becke weights")
+    for xc, run in runs.items():
+        ks = run["ks"]
+        vj, _, exc, vxc, _, _ = ks._fock_parts(ks.dm)
+        f_d = (ks._h + vj + vxc).cpu()
+        ks_c.xc = xc
+        t0 = time.perf_counter()
+        vj, _, exc_c, vxc, _, _ = ks_c._fock_parts(ks.dm.cpu())
+        f_c = h_c + vj + vxc
+        d = float((f_c - f_d).abs().max() / f_d.abs().max())
+        print("%s %s: one Fock (J, E_xc, autograd v_xc) rebuilt on the CPU "
+              "from the card's density in %.2f s: max |card - CPU| / max "
+              "|F| %.3e, E_xc card - CPU %.3e (tol %.0e)"
+              % (label, xc, time.perf_counter() - t0, d, exc - exc_c,
+                 DFT_TOL["Fock rebuild"]))
+        if not (d <= DFT_TOL["Fock rebuild"]
+                and abs(exc - exc_c) <= DFT_TOL["Fock rebuild"]
+                * abs(exc)):
+            bad.append("%s Fock rebuild" % xc)
+    del ks_c
+    # RKS(None, hyb=1) is the RHF of the same integrals
+    t0 = time.perf_counter()
+    hf = RKS(mol, xc=None, hyb=1.0, device=device)
+    E_hf_ks = hf.kernel()[0]
+    d = E_hf_ks - meta["E_hf"]
+    print("%s: RKS(None, hyb=1) %.12f (%d iterations, %.2f s), RHF of the "
+          "lattice builder %.12f: diff %.3e (tol %.0e)"
+          % (label, E_hf_ks, hf.cycles, time.perf_counter() - t0,
+             meta["E_hf"], d, DFT_TOL["RKS(None, hyb=1) - RHF"]))
+    if not (hf.converged and abs(d) <= DFT_TOL["RKS(None, hyb=1) - RHF"]):
+        bad.append("RKS(None, hyb=1) - RHF")
+    del hf
+    # the HF-limit identity of the double counting on the KS lattice
+    vcor = dmet.VcorLocal(True, False, meta["nlo"])
+    vcor.update(np.zeros(vcor.length()))
+    rho, _ = dmet.RHartreeFock(Lat, vcor, mol.nelectron / (2.0 * mol.nao),
+                               None)
+    xc_dc = Lat.xc_dc
+    Lat.xc_dc, Lat.xc_hyb = (lambda r: torch.zeros_like(r)), 1.0
+    H_dc = dmet.ConstructImpHam(Lat, rho, vcor, matching=False,
+                                int_bath=True)[0].H1["cd"]
+    Lat.xc_dc = None
+    H_std = dmet.ConstructImpHam(Lat, rho, vcor, matching=False,
+                                 int_bath=True)[0].H1["cd"]
+    Lat.xc_dc, Lat.xc_hyb = xc_dc, 0.0
+    d = float((H_dc - H_std).abs().max())
+    print("%s: HF-limit identity (xc_dc = 0, hyb = 1 against the standard "
+          "interacting bath): max |dH1| %.3e (tol %.0e)"
+          % (label, d, DFT_TOL["HF-limit identity"]))
+    if not d <= DFT_TOL["HF-limit identity"]:
+        bad.append("HF-limit identity")
+    shape = (int(Lat.chol_L.shape[0]), runs["lsda"]["res"]["neo"])
+    err, ms, plain_ms, bound, by = tri_kernel_at(shape, device, card)
+    if bad:
+        raise AssertionError("%s failed: %s" % (label, bad))
+    return launches, err, {
+        "shape": list(shape), "launches": launches, "ms": ms,
+        "plain_ms": plain_ms, "library_ms": plain_ms, "bound_ms": bound,
+        "bound_by": by}
+
+
+def phase_dft(device, card):
+    """Phase 13.  Returns the tri kernel's launches on the DFT-in-DMET
+    path, and its max_abs_err and record at the H50 path's shape."""
+    t0 = time.perf_counter()
+    phase_dft_oracles(device, card)
+    launches = phase_dft_jax_ring(device, card)
+    n, err, at = phase_dft_full(device, card)
+    at["launches"] = launches + n
+    print("13 DFT phase [%s]: %.1f s" % (card, time.perf_counter() - t0))
+    return launches + n, err, at
+
+
 def main():
     t_start = time.perf_counter()
     device, card = phase_device()
@@ -3626,8 +4199,11 @@ def main():
         phase_cas_oracles(device, card)
         launches_hchain_cas = phase_hchain_cas(device, card, ints_hchain())
         t12 += time.perf_counter() - t0
+        t13 = time.perf_counter()
+        launches_dft, err_dft, at_dft = phase_dft(device, card)
+        t13 = time.perf_counter() - t13
     max_abs["syrk_df"] = max(max_abs["syrk_df"], err_chol, err_gso,
-                             err_hchain)
+                             err_hchain, err_dft)
     print("card: %s" % card)
     naux, neo = PATH_SHAPE
     npair = neo * (neo + 1) // 2
@@ -3642,7 +4218,8 @@ def main():
               "abinitio_gso": launches_gso["syrk_df"],
               "abinitio_hchain": launches_hchain,
               "abinitio_cas": launches_cas["syrk_df"],
-              "hchain_cas": launches_hchain_cas}),
+              "hchain_cas": launches_hchain_cas,
+              "dft_in_dmet": launches_dft}),
             ("syrk_df_cross", "cross",
              "libdmet_preview_tpu/ops/pallas_eri.py:45",
              {"abinitio_uhf": launches_ai["syrk_df_cross"],
@@ -3680,8 +4257,10 @@ def main():
     # ... and the shape the H-chain lattices built from the engine arrays
     # give it (phase 11)
     kernels[0]["at_abinitio_hchain_shape"] = at_hchain
-    print("chip_smoke total: %.1f s, of it phase 12 %.1f s [%s]"
-          % (time.perf_counter() - t_start, t12, card))
+    # ... and the shape the full-width DFT-in-DMET ring gives it (phase 13)
+    kernels[0]["at_dft_in_dmet_shape"] = at_dft
+    print("chip_smoke total: %.1f s, of it phase 12 %.1f s, phase 13 %.1f s "
+          "[%s]" % (time.perf_counter() - t_start, t12, t13, card))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

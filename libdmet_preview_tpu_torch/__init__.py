@@ -18,3 +18,4 @@ from libdmet_preview_tpu_torch import models  # noqa: F401
 from libdmet_preview_tpu_torch import ops  # noqa: F401
 from libdmet_preview_tpu_torch import dmet  # noqa: F401
 from libdmet_preview_tpu_torch import solvers  # noqa: F401
+from libdmet_preview_tpu_torch import ints  # noqa: F401

@@ -2,10 +2,13 @@
 Ab initio lattices (PyTorch port of libdmet_preview_tpu/models/abinitio.py,
 its array tier and its k-space tier).
 
-The port has no integral engine yet (Slice 7): each factory takes the
-engine's arrays as an EngineInts record (models/engine_ints.py) where the
-JAX factory builds a Mole or PbcCell.  From there the pipeline is the JAX
-package's, on `device`:
+Each factory takes the engine's arrays as an EngineInts record
+(models/engine_ints.py); make_molecule_lattice and make_h_ring_lattice
+also take a port molecule (ints.gto.Mole / ints.md.MoleGeneral), whose
+record they make with mole_engine_ints and which they keep in
+meta["mole"], as the JAX factories do (the periodic engine, PbcCell, is
+not ported yet).  From there the pipeline is the JAX package's, on
+`device`:
 
     S, hcore, ERI (EngineInts)
     molecular / supercell RHF or UHF     (solvers.scf.SCF, Fock on device)
@@ -35,7 +38,7 @@ from libdmet_preview_tpu_torch.lo.lowdin import _h, lowdin_orth
 from libdmet_preview_tpu_torch.utils import logger as log
 from libdmet_preview_tpu_torch.utils.misc import as_f64, as_tensor, to_host
 from libdmet_preview_tpu_torch.models.engine_ints import (  # noqa: F401
-    EngineInts, load_engine_ints, save_engine_ints)
+    EngineInts, load_engine_ints, mole_engine_ints, save_engine_ints)
 
 
 class AbInitioHam(object):
@@ -173,9 +176,19 @@ def _lo_operators(ints, C, dm, device):
     return h_lo, eri_lo, rdm1_lo, h_lo + va
 
 
+def _as_engine_ints(ints, ncells, minimal_ref):
+    """(EngineInts, the molecule or None) of a factory's input."""
+    if isinstance(ints, EngineInts):
+        return ints, None
+    mol = ints
+    return mole_engine_ints(mol, ncells=ncells or len(mol.atoms),
+                            minimal_ref=minimal_ref), mol
+
+
 def make_molecule_lattice(ints, chol_tol=1e-10, device=torch.device("cuda")):
     """Molecular (non-PBC) DMET: a single-cell 'lattice' whose fragments
-    are orbital subsets.  ints: the molecule's EngineInts.
+    are orbital subsets.  ints: the molecule's EngineInts, or the molecule
+    (ints.gto.Mole / ints.md.MoleGeneral; kept in meta["mole"]).
 
     Returns (Lat, meta) in the Lowdin-LO basis; run DMET with
     imp_idx/val_idx fragment subsets of the LOs.  meta's matrices are
@@ -184,6 +197,7 @@ def make_molecule_lattice(ints, chol_tol=1e-10, device=torch.device("cuda")):
     from libdmet_preview_tpu_torch.models.lattice import ChainLattice
     from libdmet_preview_tpu_torch.ops.eri_transform import cholesky_eri
     from libdmet_preview_tpu_torch.solvers.scf import SCF, _veff_uhf
+    ints, mol = _as_engine_ints(ints, 1, None)
     nsite = ints.nao
     C = lowdin(as_f64(ints.S, device))
     h_lo = C.T @ as_f64(ints.hcore, device) @ C
@@ -206,13 +220,20 @@ def make_molecule_lattice(ints, chol_tol=1e-10, device=torch.device("cuda")):
     meta = {"ints": ints, "E_hf": E_hf, "C_ao_lo": C, "eri_lo": eri_lo,
             "h_lo": h_lo, "fock_lo": fock_lo, "rdm1_lo": rdm1_lo,
             "nlo": nsite}
+    if mol is not None:
+        meta["mole"] = mol
     return Lat, meta
 
 
 def make_h_ring_lattice(ints, chol_tol=1e-10, localization="lowdin",
-                        device=torch.device("cuda")):
+                        device=torch.device("cuda"), ncells=None,
+                        minimal_ref="sto-6g"):
     """An ab initio DMET lattice from an H ring's EngineInts (ncells cells
-    of atoms_per_cell atoms, AO order cell-major).
+    of atoms_per_cell atoms, AO order cell-major), or from the ring itself
+    (ints.gto.Mole, e.g. ints.gto.h_ring_mole(n, r_bond, basis)) cut into
+    `ncells` cells (default: one atom per cell); the IAOs are then taken
+    against `minimal_ref`, and the molecule is kept in meta["mole"] (what
+    attach_ks reads).
 
     localization:
       'lowdin' -- S^{-1/2} LOs, all valence (minimal-basis workflow)
@@ -223,6 +244,8 @@ def make_h_ring_lattice(ints, chol_tol=1e-10, localization="lowdin",
     results in meta (tensors on `device`)."""
     from libdmet_preview_tpu_torch.models.lattice import ChainLattice
     from libdmet_preview_tpu_torch.ops.eri_transform import cholesky_eri
+    ints, mol = _as_engine_ints(
+        ints, ncells, minimal_ref if localization == "iao" else None)
     ncells, apc = ints.ncells, ints.atoms_per_cell
     nlo = ints.nao_atom * apc                # LOs per cell
     myscf, E_hf, dm = _rhf_ao(ints, device)
@@ -255,7 +278,53 @@ def make_h_ring_lattice(ints, chol_tol=1e-10, localization="lowdin",
     meta = {"ints": ints, "E_hf": E_hf, "C_ao_lo": C, "eri_lo": eri_lo,
             "h_lo": h_lo, "fock_lo": fock_lo, "rdm1_lo": rdm1_lo,
             "nlo": nlo, "nval": nval_cell, "nvirt": nvirt_cell}
+    if mol is not None:
+        meta["mole"] = mol
     return Lat, meta
+
+
+def attach_ks(Lat, meta, xc="lsda", hyb=0.0, n_rad=60, n_theta=12,
+              n_phi=24):
+    """Turn an H-ring HF lattice (make_h_ring_lattice of a Mole) into a
+    KS-DFT lattice for DFT-in-DMET: run the molecular RKS on the lattice's
+    device, replace the lattice Fock and rdm1 by the KS ones (LO stripes
+    of the first block column), and install the xc double counting that
+    ops.embham._emb_H1 applies: Lat.xc_dc maps a spin-traced supercell LO
+    density (a tensor) to the LO matrix of v_xc at that density (a tensor
+    on the same device; C, the AO grid and its weights stay there), and
+    Lat.xc_hyb is the fraction of HF exchange.
+
+    Returns the converged RKS object."""
+    from libdmet_preview_tpu_torch.ints.xc import eval_exc_vxc
+    from libdmet_preview_tpu_torch.solvers.ksdft import RKS
+    mol = meta["mole"]
+    dev = Lat.device
+    C = as_f64(meta["C_ao_lo"], dev)
+    nlo = meta["nlo"]
+    ks = RKS(mol, xc=xc, hyb=hyb, n_rad=n_rad, n_theta=n_theta,
+             n_phi=n_phi, device=dev)
+    ks.kernel()
+    assert ks.converged
+    SC = as_f64(mol.intor_ovlp(), dev) @ C
+    rdm1_lo = SC.T @ ks.dm @ SC                   # spin-traced total
+    fock_lo = C.T @ ks.fock @ C
+    fock_R, rdm1_R = [to_host(_first_column_stripes(M, Lat.ncells, nlo))
+                      for M in (fock_lo, rdm1_lo)]
+    Lat.update_Ham(rdm1_R, fock_lo_k=Lat.R2k(fock_R))
+    Lat.fock_lo_R = fock_R
+    Lat.use_hcore_as_emb_ham = False
+
+    ao_g, ao_grad_g, wts = ks.ao_g, ks.ao_grad_g, ks.grid[1]
+
+    def xc_dc(rho_lo_tot):
+        rho_ao = C @ as_f64(rho_lo_tot, dev) @ C.T
+        _, vxc_ao = eval_exc_vxc(rho_ao, ao_g, wts, restricted=True, xc=xc,
+                                 ao_grad=ao_grad_g)
+        return C.T @ vxc_ao @ C
+
+    Lat.xc_dc = xc_dc
+    Lat.xc_hyb = hyb
+    return ks
 
 
 def make_hchain_pbc_lattice(ints, localization="iao", chol_tol=1e-9,

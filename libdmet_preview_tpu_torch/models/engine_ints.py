@@ -2,14 +2,16 @@
 The integral engine's output as plain arrays (the input of the ab initio
 lattice builders in models/abinitio.py).
 
-The port has no Gaussian integral engine yet, so each ab initio factory
-takes an EngineInts record: the AO overlap, core Hamiltonian and ERI of
-the whole system (a BvK supercell, a ring or a molecule), its nuclear
-repulsion and electron count, the atom layout, and for IAO localization
-the cross overlap S12 with the minimal reference basis and that basis'
-own overlap S2.  Records are kept as .npz files; the ones the repo ships
-live in libdmet_preview_tpu_torch/data/ and are written by
-scripts/dump_engine_ints_torch.py.
+Each ab initio factory takes an EngineInts record: the AO overlap, core
+Hamiltonian and ERI of the whole system (a BvK supercell, a ring or a
+molecule), its nuclear repulsion and electron count, the atom layout, and
+for IAO localization the cross overlap S12 with the minimal reference
+basis and that basis' own overlap S2.  mole_engine_ints makes one from the
+port's molecular engine (ints.gto.Mole, ints.md.MoleGeneral); the periodic
+engine is not ported yet, so the periodic H chain's record is kept as an
+.npz file in libdmet_preview_tpu_torch/data/, written from the JAX engine
+by scripts/dump_engine_ints_torch.py (as are the H ring's, which
+mole_engine_ints now reproduces).
 """
 
 import os
@@ -88,3 +90,25 @@ def load_engine_ints(path):
             kw[f.name] = (_SCALARS[f.name](v[()]) if f.name in _SCALARS
                           else np.array(v, dtype=np.float64))
     return EngineInts(**kw)
+
+
+def mole_engine_ints(mol, ncells=1, minimal_ref=None):
+    """EngineInts of a port molecule (ints.gto.Mole or ints.md.MoleGeneral)
+    whose atoms carry equal AO counts, in `ncells` cells, atom-major; with
+    `minimal_ref` (an s basis name) also S12 / S2 against that basis on the
+    same atoms (IAO localization)."""
+    natom = len(mol.atoms)
+    S12 = S2 = None
+    if minimal_ref is not None:
+        from libdmet_preview_tpu_torch.ints.gto import Mole, cross_ovlp
+        mol_min = Mole(mol.atoms, basis=minimal_ref)
+        S12 = cross_ovlp(mol, mol_min)
+        S2 = mol_min.intor_ovlp()
+    return EngineInts(
+        S=mol.intor_ovlp(), hcore=mol.intor_hcore(), eri=mol.intor_eri(),
+        e_nuc=float(mol.energy_nuc()), nelectron=int(mol.nelectron),
+        natom=natom, nao_atom=mol.nao // natom, ncells=int(ncells),
+        S12=S12, S2=S2,
+        source="the port's engine: %d atoms, basis %s%s" % (
+            natom, getattr(mol, "basis_name", "general"),
+            "" if minimal_ref is None else ", minimal %s" % minimal_ref))

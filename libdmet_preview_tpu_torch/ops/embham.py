@@ -215,11 +215,17 @@ def unit2emb(H2_unit, neo):
 # JK builders from embedding ERI
 # ----------------------------------------------------------------------
 
+def _get_vjk_rhf(rdm1_tot, eri):
+    """Separate (J, K) of the spin-traced density."""
+    vj = torch.einsum("ijkl, kl -> ij", eri, rdm1_tot)
+    vk = torch.einsum("ilkj, kl -> ij", eri, rdm1_tot)
+    return vj, vk
+
+
 def _get_veff_rhf(rdm1_tot, eri):
     """Restricted veff = J(rho_tot) - 0.5 K(rho_tot); rdm1_tot is the
     spin-traced density."""
-    vj = torch.einsum("ijkl, kl -> ij", eri, rdm1_tot)
-    vk = torch.einsum("ilkj, kl -> ij", eri, rdm1_tot)
+    vj, vk = _get_vjk_rhf(rdm1_tot, eri)
     return (vj - vk * 0.5)[None]
 
 
@@ -452,10 +458,6 @@ def _emb_H2(lattice, basis, vcor, int_bath=True, **kwargs):
 
 def _emb_H1(lattice, basis, vcor, H2_emb, int_bath=True, add_vcor=False,
             **kwargs):
-    if getattr(lattice, "xc_dc", None) is not None:
-        raise NotImplementedError(
-            "embedding H1: the DFT double counting (xc_dc) is not ported "
-            "yet: it belongs to the DFT slice (Slice 5b)")
     spin = basis.shape[0]
     basis_k = lattice.R2k_basis(basis)
     hcore_emb = transform_h1(lattice.getH1(kspace=True), basis_k)
@@ -466,7 +468,23 @@ def _emb_H1(lattice, basis, vcor, H2_emb, int_bath=True, add_vcor=False,
     if int_bath:
         rdm1_emb = foldRho_k(lattice.rdm1_lo_k, basis_k)
         H1 = transform_h1(lattice.getFock(kspace=True), basis_k)
-        H1 = H1 - get_veff(rdm1_emb, H2_emb)
+        xc_dc = getattr(lattice, "xc_dc", None)
+        if xc_dc is not None:
+            # DFT-in-DMET double counting: the lattice Fock is a KS Fock
+            # (hcore + J + vxc [+ hyb HF exchange]); remove the mean field
+            # the embedded electrons generate for themselves: Coulomb,
+            # hybrid HF exchange and the xc potential at the folded
+            # density (hyb = 1 with vxc = 0 is the standard interacting
+            # bath exactly)
+            hyb = float(getattr(lattice, "xc_hyb", 0.0))
+            log.eassert(spin == 1, "DFT-in-DMET dc: restricted path")
+            vj, vk = _get_vjk_rhf(rdm1_emb[0], H2_emb[0])
+            B = basis[0].reshape(-1, basis.shape[-1])
+            vxc_lo = as_f64(xc_dc(B @ rdm1_emb[0] @ B.T), basis.device)
+            JK_emb = (vj - 0.5 * hyb * vk + B.T @ vxc_lo @ B)[None]
+        else:
+            JK_emb = get_veff(rdm1_emb, H2_emb)
+        H1 = H1 - JK_emb
         lattice.JK_core = H1 - hcore_emb
     else:
         add_vcor = True

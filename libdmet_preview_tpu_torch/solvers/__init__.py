@@ -17,3 +17,4 @@ from libdmet_preview_tpu_torch.solvers.dmrg import (  # noqa: F401
 from libdmet_preview_tpu_torch.solvers.external import (  # noqa: F401
     ExternalFCIDUMPSolver, Block2Solver, SHCISolver, AFQMCSolver, DQMCSolver)
 from libdmet_preview_tpu_torch.solvers.gw import get_vsig_emb  # noqa: F401
+from libdmet_preview_tpu_torch.solvers.ksdft import RKS, UKS  # noqa: F401

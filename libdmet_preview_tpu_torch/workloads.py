@@ -769,3 +769,170 @@ with open("cicj.dat", "w") as f:
     for v in rdm1.numpy().ravel():
         f.write("%%.12f 0.0 1e-4\n" %% v)
 """
+
+
+# ----------------------------------------------------------------------
+# phase 13: KS-DFT and DFT-in-DMET on the H ring (ints.gto.h_ring_mole)
+# ----------------------------------------------------------------------
+
+# the ring: 2 atoms per cell, 3-21G, IAO + PAO against STO-6G (4 LOs per
+# cell); H22 is held to the JAX package's values, H50 runs at full width
+DFT_RING = {"r_bond": 1.8, "basis": "3-21g", "minimal_ref": "sto-6g",
+            "atoms_per_cell": 2}
+DFT_NATOM_JAX = 22
+DFT_NATOM_FULL = 50
+DFT_XC = ("lsda", "pbe")
+# the DFT-in-DMET loop of tests/test_dft.py:139-182: at most 20 MuSolver
+# steps, stopped when the impurity's electrons per LO are within 1e-6
+DFT_DMET = {"max_iter": 20, "nelec_tol": 1e-6}
+# the JAX package's values on the H22 ring at its default grid (60 x 12 x
+# 24 points per atom), from
+#     JAX_PLATFORMS=cpu python scripts/dft_reference_jax.py
+# on the CPU: the RKS energy, SCF iterations and the grid's electron count
+# sum_g w_g rho(r_g) for each functional, and the DFT-in-DMET loop's
+# impurity energy per cell, electrons per LO, impurity rdm1 (spin-traced /
+# 2, as transformResults gives it) and MuSolver steps
+DFT_JAX = {
+    'lsda': {
+        'E_ks': -12.224815707758076,
+        'ks_cycles': 7,
+        'n_grid': 21.99999917566877,
+        'E': -1.0907773199327635,
+        'nelecImp': 0.500000004400965,
+        'rhoImp': [[[ 4.9930678699882491e-01,  3.0346765523893293e-01,
+               -1.4130779360859141e-03, -3.6001384773072954e-03],
+              [ 3.0346765523893293e-01,  4.9930676392709172e-01,
+               -3.6001315694133111e-03, -1.4130583986690583e-03],
+              [-1.4130779360859141e-03, -3.6001315694133111e-03,
+                6.9322884815941103e-04,  4.4488503637530002e-04],
+              [-3.6001384773072954e-03, -1.4130583986690583e-03,
+                4.4488503637530002e-04,  6.9322902785403837e-04]]],
+        'steps': 1,
+        'neo': 6,
+    },
+    'pbe': {
+        'E_ks': -12.450596081065882,
+        'ks_cycles': 7,
+        'n_grid': 21.999999402776552,
+        'E': -1.089581753813651,
+        'nelecImp': 0.5000000210593805,
+        'rhoImp': [[[ 4.9930649780956254e-01,  3.0320176837337709e-01,
+               -1.3296951025810267e-03, -3.5362834101665508e-03],
+              [ 3.0320176837337709e-01,  4.9930650328806558e-01,
+               -3.5362760112333910e-03, -1.3296692881159273e-03],
+              [-1.3296951025810267e-03, -3.5362760112333910e-03,
+                6.9352034551497718e-04,  4.4428837535378179e-04],
+              [-3.5362834101665508e-03, -1.3296692881159273e-03,
+                4.4428837535378179e-04,  6.9352067561772885e-04]]],
+        'steps': 1,
+        'neo': 6,
+    },
+}
+
+def dft_ring_mole(natom):
+    """The DFT_RING ring of `natom` H atoms (a port Mole)."""
+    from libdmet_preview_tpu_torch.ints.gto import h_ring_mole
+    return h_ring_mole(natom, DFT_RING["r_bond"], DFT_RING["basis"])
+
+
+def dft_lattice(mol, device):
+    """make_h_ring_lattice of the ring, IAO + PAO against STO-6G."""
+    from libdmet_preview_tpu_torch.models.abinitio import make_h_ring_lattice
+    return make_h_ring_lattice(
+        mol, localization="iao", device=device,
+        ncells=len(mol.atoms) // DFT_RING["atoms_per_cell"],
+        minimal_ref=DFT_RING["minimal_ref"])
+
+
+def grid_electrons(ks):
+    """sum_g w_g rho(r_g) of a converged RKS's density."""
+    ao = ks.ao_g
+    return float(ks.grid[1] @ (ao * (ks.dm @ ao)).sum(dim=0))
+
+
+def integral_to(ImpHam, device):
+    """A copy of an embedding Integral with its tensors on `device`."""
+    from libdmet_preview_tpu_torch.models.integral import Integral
+
+    def mv(x):
+        return x if x is None else torch.as_tensor(x).to(device).clone()
+    return Integral(ImpHam.norb, ImpHam.restricted, ImpHam.bogoliubov,
+                    ImpHam.H0, {k: mv(v) for k, v in ImpHam.H1.items()},
+                    {k: mv(v) for k, v in ImpHam.H2.items()},
+                    ovlp=mv(ImpHam.ovlp))
+
+
+def dft_dmet_step(Lat, filling, ImpHam, basis, H1e, solver, solver_args,
+                  mu_solver, last_dmu):
+    """One MuSolver step of the DFT-in-DMET loop and its transformResults.
+    Returns (ImpHam, last_dmu, rhoImp, EnergyImp, nelecImp)."""
+    import libdmet_preview_tpu_torch.dmet.hubbard as dmet
+    from libdmet_preview_tpu_torch.utils.timer import stage
+    with stage("impurity solves", basis.device):
+        rhoEmb, E_emb, ImpHam, dmu = mu_solver(
+            Lat, filling, ImpHam, basis, solver, solver_args)
+    last_dmu += dmu
+    with stage("energy", basis.device):
+        rhoImp, EnergyImp, nelecImp = dmet.transformResults(
+            rhoEmb, E_emb, basis, ImpHam, H1e, lattice=Lat,
+            last_dmu=last_dmu, int_bath=True, solver=solver,
+            solver_args=solver_args)
+    return ImpHam, last_dmu, rhoImp, float(EnergyImp), float(nelecImp)
+
+
+def run_dft_dmet(Lat, meta, solver, proto=DFT_DMET):
+    """The DFT-in-DMET loop of tests/test_dft.py:139-182 on a lattice that
+    attach_ks made a KS lattice: RHartreeFock with a zero vcor ->
+    ConstructImpHam(int_bath=True) (the xc double counting in _emb_H1) ->
+    MuSolver -> transformResults, until the impurity's electrons per LO
+    are within proto["nelec_tol"] of the filling.  Returns a dict: E (per
+    cell), nelecImp, rhoImp (host), steps, and "last", the state the last
+    MuSolver step started from (enough to replay it with dft_dmet_step)."""
+    import libdmet_preview_tpu_torch.dmet.hubbard as dmet
+    from libdmet_preview_tpu_torch.utils.timer import stage
+    nlo = meta["nlo"]
+    mol = meta["mole"]
+    dev = Lat.device
+    vcor = dmet.VcorLocal(True, False, nlo)
+    vcor.update(np.zeros(vcor.length()))
+    filling = mol.nelectron / (2.0 * mol.nao)
+    with stage("mean field", dev):
+        rho, _ = dmet.RHartreeFock(Lat, vcor, filling, None)
+    ImpHam, H1e, basis = dmet.ConstructImpHam(Lat, rho, vcor, matching=False,
+                                              int_bath=True)
+    solver_args = {"nelec": (Lat.ncore + Lat.nval) * 2}
+    mu_solver = dmet.MuSolver(adaptive=True)
+    last_dmu = 0.0
+    for it in range(proto["max_iter"]):
+        last = {"ImpHam": integral_to(ImpHam, dev), "last_dmu": last_dmu,
+                "history": copy.deepcopy(mu_solver.history)}
+        ImpHam, last_dmu, rhoImp, E, nelecImp = dft_dmet_step(
+            Lat, filling, ImpHam, basis, H1e, solver, solver_args,
+            mu_solver, last_dmu)
+        if abs(nelecImp - 2 * filling) < proto["nelec_tol"]:
+            break
+    last.update({"basis": basis, "H1e": H1e, "filling": filling,
+                 "solver_args": solver_args})
+    return {"E": E * nlo, "nelecImp": nelecImp, "rhoImp": to_host(rhoImp),
+            "steps": it + 1, "neo": int(basis.shape[-1]), "last": last}
+
+
+def replay_dft_dmet_step(Lat, res, solver, device):
+    """The last MuSolver step of run_dft_dmet again on `device`, from the
+    state it started from (the embedding Hamiltonian, basis and H1e, the
+    MuSolver history; the lattice's JK_core moved to `device`).  Returns
+    (E per cell, nelecImp, rhoImp)."""
+    import libdmet_preview_tpu_torch.dmet.hubbard as dmet
+    st = res["last"]
+    Lc = copy.copy(Lat)
+    Lc.JK_core = torch.as_tensor(Lat.JK_core).to(device)
+    mu_solver = dmet.MuSolver(adaptive=True)
+    mu_solver.history = copy.deepcopy(st["history"])
+    H1e = st["H1e"]
+    if isinstance(H1e, torch.Tensor):
+        H1e = H1e.to(device)
+    _, _, rhoImp, E, nelecImp = dft_dmet_step(
+        Lc, st["filling"], integral_to(st["ImpHam"], device),
+        st["basis"].to(device), H1e, solver, st["solver_args"], mu_solver,
+        st["last_dmu"])
+    return E * Lat.nscsites, nelecImp, to_host(rhoImp)

@@ -9,7 +9,12 @@ differences.  On the CPU.
 Tolerances: energies 1e-7 (both orbital optimizers stop on their own
 gradient tests), the JAX suite's anchors at its own 1e-6 / 1e-8,
 derivatives 1e-7 against central differences of step 1e-4.
+
+The JAX package's three orbital optimizations are independent, so one
+module-scoped fixture runs them once, each in its own thread.
 """
+
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -44,10 +49,35 @@ def ring_sym_broken():
                     {"ccdd": g[None]})
 
 
-def test_casscf_full_space_equals_fci_and_jax():
+def _jax_casscf(kind):
+    from libdmet_preview_tpu.solvers import GCASSCF, UCASSCF
+    from libdmet_preview_tpu.solvers.casci import CASSCF
+    if kind == "restricted":
+        return CASSCF(ncas=2, nelecas=2, max_cycle=25, tol=1e-6).run(
+            random_integral(4, restricted=True, seed=11), nelec=4)[1]
+    if kind == "unrestricted":
+        return UCASSCF(ncas=3, nelecas=2, Sz=0, tol=1e-7, max_cycle=20).run(
+            ring_sym_broken(), nelec=4)[1]
+    GHam = gso_ring()
+    nso, nao = GHam.norb, GHam.norb // 2
+    return GCASSCF(ncas=nso - 2, nelecas=nao - 2, tol=1e-7,
+                   max_cycle=15).run(GHam, nelec=nao)[1]
+
+
+@pytest.fixture(scope="module")
+def jax_energies():
+    """{kind: E} of the JAX package's CASSCF(2, 2) on random_integral(4,
+    seed=11), UCASSCF(3, 2) on ring_sym_broken() and GCASSCF on the
+    frozen-core window of gso_ring()."""
+    kinds = ("restricted", "unrestricted", "ghf")
+    with ThreadPoolExecutor(len(kinds)) as ex:
+        futures = {k: ex.submit(_jax_casscf, k) for k in kinds}
+        return {k: f.result() for k, f in futures.items()}
+
+
+def test_casscf_full_space_equals_fci_and_jax(jax_energies):
     """CASSCF(4, 4) == FCI (1e-8, the JAX suite's), and CASSCF(2, 2)
     against the JAX package (1e-7), variational and below CASCI(2, 2)."""
-    from libdmet_preview_tpu.solvers.casci import CASSCF as JCASSCF
     from libdmet_preview_tpu_torch.solvers import CASCI, CASSCF, FCI
     Ham = random_integral(4, restricted=True, seed=11)
     Ht = port_integral(Ham)
@@ -59,8 +89,7 @@ def test_casscf_full_space_equals_fci_and_jax():
     _, E_casci = CASCI(ncas=2, nelecas=2, device=CPU).run(Ht, nelec=4)
     mc = CASSCF(ncas=2, nelecas=2, max_cycle=25, tol=1e-6, device=CPU)
     rdm1, E_mc = mc.run(Ht, nelec=4)
-    _, E_j = JCASSCF(ncas=2, nelecas=2, max_cycle=25, tol=1e-6).run(
-        Ham, nelec=4)
+    E_j = jax_energies["restricted"]
     assert abs(E_mc - E_j) < E_TOL
     assert E_mc <= E_casci + 1e-10
     assert E_mc >= E_fci - 1e-9
@@ -71,10 +100,9 @@ def test_casscf_full_space_equals_fci_and_jax():
     assert mc.counts["hvp"] > 0
 
 
-def test_ucasscf_anchors_and_jax():
+def test_ucasscf_anchors_and_jax(jax_energies):
     """UCASSCF(3, 2) to the JAX suite's anchor -1.8841957321182 (1e-6) and
     the JAX package (1e-7); the full window to FCI -2.1477353252387."""
-    from libdmet_preview_tpu.solvers import UCASSCF as JUCASSCF
     from libdmet_preview_tpu_torch.solvers import FCI, UCASCI, UCASSCF
     Ham = ring_sym_broken()
     Ht = port_integral(Ham)
@@ -86,8 +114,7 @@ def test_ucasscf_anchors_and_jax():
     scf = UCASSCF(ncas=3, nelecas=2, Sz=0, tol=1e-7, max_cycle=20,
                   device=CPU)
     _, E_scf = scf.run(Ht, nelec=4)
-    jscf = JUCASSCF(ncas=3, nelecas=2, Sz=0, tol=1e-7, max_cycle=20)
-    _, E_j = jscf.run(Ham, nelec=4)
+    E_j = jax_energies["unrestricted"]
     assert scf.converged
     assert abs(E_scf - (-1.8841957321182)) < 1e-6
     assert abs(E_scf - E_j) < E_TOL
@@ -100,11 +127,10 @@ def test_ucasscf_anchors_and_jax():
     assert abs(E_full - E_fci) < 1e-9
 
 
-def test_gcasscf_anchors_and_jax():
+def test_gcasscf_anchors_and_jax(jax_energies):
     """GCASSCF on the ph-transformed ring: the frozen-core window to the
     JAX suite's anchor -8.188240873805 (1e-6) and the JAX package (1e-7),
     the full window to FCI -8.42442890089805 (1e-9)."""
-    from libdmet_preview_tpu.solvers import GCASSCF as JGCASSCF
     from libdmet_preview_tpu_torch.solvers import FCI, GCASCI, GCASSCF
     GHam = gso_ring()
     Ht = port_integral(GHam)
@@ -117,8 +143,7 @@ def test_gcasscf_anchors_and_jax():
     scf = GCASSCF(ncas=nso - 2, nelecas=nao - 2, tol=1e-7, max_cycle=15,
                   device=CPU)
     _, E_scf = scf.run(Ht, nelec=nao)
-    _, E_j = JGCASSCF(ncas=nso - 2, nelecas=nao - 2, tol=1e-7,
-                      max_cycle=15).run(GHam, nelec=nao)
+    E_j = jax_energies["ghf"]
     assert scf.converged
     assert abs(E_scf - (-8.188240873805)) < 1e-6
     assert abs(E_scf - E_j) < E_TOL

@@ -505,3 +505,50 @@ def test_w90_kernel_and_files_match_jax(tmp_path):
     assert (tmp_path / "p.win").read_text() == wj.make_win()
     with pytest.raises(ValueError):
         PW90(C, kmesh, latt, num_wann=1, device=CPU)
+
+
+# ----------------------------------------------------------------------
+# SCDM with smearing weights and the k-point SCDM
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("kind", ["erfc", "gauss", "fermi"])
+def test_scdm_smear_matches_jax(kind):
+    """scdm_smear against JAX (1e-12, same pivots) and the oracles of
+    tests/test_extras2.py:371-386: orthonormal, span preserved."""
+    from libdmet_preview_tpu.lo.scdm import scdm_smear as jss
+    from libdmet_preview_tpu_torch.lo.scdm import scdm_smear
+    rng = np.random.RandomState(0)
+    C = np.linalg.qr(rng.randn(10, 6))[0]
+    e = np.array([-2.0, -1.5, -1.0, 5.0, 6.0, 7.0])
+    C_loc, piv = scdm_smear(C, e, mu=0.0, sigma=0.2, kind=kind,
+                            return_piv=True)
+    Cj, pj = jss(C, e, mu=0.0, sigma=0.2, kind=kind, return_piv=True)
+    assert np.array_equal(piv, pj)
+    assert np.abs(C_loc - Cj).max() < 1e-12
+    assert np.allclose(C_loc.T @ C_loc, np.eye(6), atol=1e-10)
+    assert np.allclose(C_loc @ C_loc.T, C @ C.T, atol=1e-10)
+    with pytest.raises(ValueError):
+        scdm_smear(C, e, 0.0, 0.2, kind="box")
+
+
+@pytest.mark.parametrize("pair", [False, True])
+def test_scdm_k_matches_jax(pair):
+    """scdm_k against JAX (1e-12, one shared pivot set) on complex
+    coefficients or their (re, im) pair, and the oracles of
+    tests/test_extras2.py:389-403: per-k projector and orthonormality."""
+    from libdmet_preview_tpu.lo.scdm import scdm_k as jsk
+    from libdmet_preview_tpu_torch.lo.scdm import scdm_k
+    rng = np.random.RandomState(1)
+    nk, nao, nmo = 4, 8, 3
+    C = np.linalg.qr(rng.randn(nk, nao, nao)
+                     + 1j * rng.randn(nk, nao, nao))[0][:, :, :nmo]
+    arg = (C.real, C.imag) if pair else C
+    C_loc, piv = scdm_k(arg, return_piv=True)
+    Cj, pj = jsk(arg, return_piv=True)
+    assert np.array_equal(piv, pj) and len(set(piv.tolist())) == nmo
+    assert np.abs(C_loc - Cj).max() < 1e-12
+    for k in range(nk):
+        assert np.abs(C[k] @ C[k].conj().T
+                      - C_loc[k] @ C_loc[k].conj().T).max() < 1e-10
+        assert np.abs(C_loc[k].conj().T @ C_loc[k]
+                      - np.eye(nmo)).max() < 1e-10

@@ -9,7 +9,13 @@ evaluation.  On the CPU.
 Tolerances: energies 1e-7 (both BFGS runs stop on their own gradient
 tests), FCI at two electrons at the JAX suite's 1e-7 / 1e-6, the orbital
 gradient 1e-6 against central differences of step 1e-5.
+
+The JAX package's runs of the cases are independent and slow (each
+evaluation re-traces its jitted pieces), so one module-scoped fixture
+runs them all once, each in its own thread.
 """
+
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -76,23 +82,37 @@ CASES = {
 }
 
 
+def _jax_run(case):
+    from libdmet_preview_tpu import solvers as jsolvers
+    name, make, nelec, kw, _ = CASES[case]
+    js = getattr(jsolvers, name)(**kw)
+    r1j, Ej = js.run(make(), nelec=nelec)
+    return np.asarray(r1j), Ej, js.oo_converged
+
+
+@pytest.fixture(scope="module")
+def jax_runs():
+    """{case: (rdm1, E, oo_converged)} of the JAX package."""
+    with ThreadPoolExecutor(len(CASES)) as ex:
+        futures = {case: ex.submit(_jax_run, case) for case in CASES}
+        return {case: f.result() for case, f in futures.items()}
+
+
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_oo_matches_jax(case):
+def test_oo_matches_jax(case, jax_runs):
     """run() in both packages: E 1e-7, rdm1 1e-6; converged; at two
     electrons OO-CCD == FCI (the JAX suite's tolerance); run_dmet_ham ==
     e_tot (1e-7); one adjoint solve per energy-and-gradient evaluation."""
-    from libdmet_preview_tpu import solvers as jsolvers
     from libdmet_preview_tpu_torch import solvers
     from libdmet_preview_tpu_torch.solvers import cc
     name, make, nelec, kw, fci_tol = CASES[case]
     Ham = make()
-    js = getattr(jsolvers, name)(**kw)
-    r1j, Ej = js.run(Ham, nelec=nelec)
+    r1j, Ej, j_converged = jax_runs[case]
     Ht = port_integral(Ham)
     ts = getattr(solvers, name)(device=CPU, **kw)
     calls = cc._solve_adjoint.calls
     r1t, Et = ts.run(Ht, nelec=nelec)
-    assert ts.oo_converged and js.oo_converged
+    assert ts.oo_converged and j_converged
     assert abs(Et - Ej) < 1e-7
     assert np.abs(r1t.numpy() - np.asarray(r1j)).max() < 1e-6
     # n_eval evaluations in the BFGS run and one for the final RDMs

@@ -8,7 +8,12 @@ of tests/test_cc.py:173-280.  On the CPU.
 Tolerances: amplitudes 1e-12 (same CI vector), energies 1e-9, rdm1 1e-8,
 run_dmet_ham == e_tot 1e-8, the _TStarFrozen backward against central
 differences 1e-7.
+
+The JAX package's TCCSD runs of the cases are independent, so one
+module-scoped fixture runs them all once, each in its own thread.
 """
+
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -80,16 +85,29 @@ TCC_CASES = {
 }
 
 
+def _jax_tccsd(case):
+    from libdmet_preview_tpu.solvers.cc import TCCSD as JTCCSD
+    make, nelec, kw = TCC_CASES[case]
+    r1j, Ej = JTCCSD(**kw).run(make(), nelec=nelec)
+    return np.asarray(r1j), Ej
+
+
+@pytest.fixture(scope="module")
+def jax_tccsd():
+    """{case: (rdm1, E)} of the JAX package's TCCSD."""
+    with ThreadPoolExecutor(len(TCC_CASES)) as ex:
+        futures = {case: ex.submit(_jax_tccsd, case) for case in TCC_CASES}
+        return {case: f.result() for case, f in futures.items()}
+
+
 @pytest.mark.parametrize("case", sorted(TCC_CASES))
-def test_tccsd_matches_jax(case):
+def test_tccsd_matches_jax(case, jax_tccsd):
     """TCCSD.run in both packages: E 1e-9, rdm1 1e-8; run_dmet_ham ==
     e_tot (1e-8); the full CAS equals the port's FCI (1e-7)."""
-    from libdmet_preview_tpu.solvers.cc import TCCSD as JTCCSD
     from libdmet_preview_tpu_torch.solvers import FCI, TCCSD
     make, nelec, kw = TCC_CASES[case]
     Ham = make()
-    js = JTCCSD(**kw)
-    r1j, Ej = js.run(Ham, nelec=nelec)
+    r1j, Ej = jax_tccsd[case]
     Ht = port_integral(Ham)
     ts = TCCSD(device=CPU, **kw)
     r1t, Et = ts.run(Ht, nelec=nelec)
