@@ -1089,6 +1089,7 @@ class _Profiled(object):
                 end = t1
         self.idle = (max(0.0, 1.0 - busy_us * 1e-6 / wall)
                      if spans else None)
+        self.n_device_events = len(spans)
         return False
 
 
@@ -4163,6 +4164,412 @@ def phase_dft(device, card):
     print("13 DFT phase [%s]: %.1f s" % (card, time.perf_counter() - t0))
     return launches + n, err, at
 
+# ----------------------------------------------------------------------
+# phase 14: the periodic Gaussian cell (ints.pbc, ints.gth, ints.basisopt)
+# and the H-chain lattices built from it
+# ----------------------------------------------------------------------
+
+PBC_TOL = {"card vs CPU": 1e-10, "vs file": 1e-10, "eri_trans_full": 1e-10}
+PBC_CRYSTAL = (3, 3, 3)        # 14c: the H2 crystal of eri_trans_full
+
+
+def _h2_crystal(km, with_translations, device):
+    from libdmet_preview_tpu_torch import workloads as wl
+    from libdmet_preview_tpu_torch.ints.pbc import PbcCell
+    atoms, a, t_vecs = wl.h2_crystal_geometry(km)
+    cell = PbcCell(atoms, a, basis="tight", basis_data=wl.H2_CRYSTAL_BASIS,
+                   precision=1e-10, device=device)
+    if with_translations:
+        cell.set_translations(int(np.prod(km)), t_vecs)
+    return cell
+
+
+def _full_from_dense(eri, N, m):
+    """The dense supercell ERI reindexed into the 'full' format
+    eri_F[R1, R2, R3, p, q, r, s] = (0p R1q | R2r R3s)."""
+    return eri.reshape(N, m, N, m, N, m, N, m)[0].permute(
+        1, 3, 5, 0, 2, 4, 6)
+
+
+def pbc_oracles(device):
+    """14a on `device`: the JAX suite's periodic-engine oracles at their
+    own sizes.  Returns ({name: integral on the device} for the card-vs-CPU
+    comparison, {oracle: (value, bound, ok)})."""
+    from libdmet_preview_tpu_torch import workloads as wl
+    from libdmet_preview_tpu_torch.ints import pbc
+    from libdmet_preview_tpu_torch.ints.basisopt import (
+        make_gth_dzvp_basis, make_gth_valence_basis)
+    from libdmet_preview_tpu_torch.ints.gto import Mole
+    from libdmet_preview_tpu_torch.models.integral import Integral
+    from libdmet_preview_tpu_torch.solvers.scf import SCF
+    ints, checks = {}, {}
+
+    def check(name, value, bound, ok=None):
+        checks[name] = (float(value), bound,
+                        bool(value < bound) if ok is None else ok)
+
+    def dmax(a, b):
+        return float((a - b).abs().max())
+
+    # the NaCl Madelung constant from the Ewald sum
+    fcc = [(0, 0, 0), (0, 1, 1), (1, 0, 1), (1, 1, 0)]
+    coords = [np.array(p, float) for p in fcc] \
+        + [np.array(p, float) + np.array([1.0, 0, 0]) for p in fcc]
+    nacl = pbc.PbcCell([("H", c) for c in coords], np.eye(3) * 2.0,
+                       basis="sto-3g", unit="B", device=device)
+    nacl.charges = np.asarray([1.0] * 4 + [-1.0] * 4)
+    check("Madelung |M - 1.7475645946|",
+          abs(-nacl.energy_nuc() / 4.0 - 1.7475645946), 1e-9)
+
+    # PBC-HF molecular limit (3-21G H2 in a 15-bohr box)
+    def hf(S, h, eri, enuc):
+        Ham = Integral(S.shape[0], True, False, enuc, {"cd": h[None]},
+                       {"ccdd": eri[None]}, ovlp=S)
+        m = SCF(device=device)
+        m.set_system(2, 0, False, True)
+        m.set_integral(Ham)
+        return m.HF(tol=1e-12, MaxIter=200)[0]
+
+    atoms = [("H", (0, 0, 0)), ("H", (0, 0, 1.4))]
+    mol = Mole(atoms, basis="3-21g")
+    E_mol = hf(mol.intor_ovlp(), mol.intor_hcore(), mol.intor_eri(),
+               mol.energy_nuc())
+    box = pbc.PbcCell(atoms, np.eye(3) * 15.0, basis="3-21g", unit="B",
+                      device=device)
+    xi = pbc.PbcCell([("H", (0, 0, 0))], np.eye(3) * 15.0, basis="sto-3g",
+                     unit="B", device=device).energy_nuc()
+    for k in ("intor_ovlp", "intor_hcore", "intor_eri"):
+        ints["H2 box " + k] = getattr(box, k)()
+    E_pbc = hf(*[ints["H2 box " + k].cpu().numpy() for k in (
+        "intor_ovlp", "intor_hcore", "intor_eri")], box.energy_nuc())
+    check("molecular limit |E_pbc + 2 xi - E_mol|",
+          abs(E_pbc + 2 * xi - E_mol), 5e-3)
+    check("Ewald self energy |xi L + 1.41865|", abs(xi * 15.0 + 1.41865),
+          1e-4)
+
+    # GTH blocks against quadrature (host)
+    err_loc, err_nl = wl.gth_quadrature_errors()
+    check("GTH C1 / C2 terms vs quadrature", err_loc, 1e-9)
+    check("GTH s/p/d projectors vs quadrature", err_nl, 1e-8)
+
+    # stripe against dense: the 1D chain, the 2 x 2 plane, the 2 x 2 x 1
+    # H2 crystal, and a GTH-PADE carbon cell
+    cs = pbc.make_hchain_supercell(nk=2, basis="sto-6g", device=device)
+    cd = pbc.make_hchain_supercell(nk=2, basis="sto-6g", device=device)
+    cd.ncells_tr = None
+    for k, bound in (("intor_ovlp", 1e-14), ("intor_kin", 1e-14),
+                     ("intor_nuc", 1e-13), ("intor_eri", 1e-13)):
+        a, b = getattr(cs, k)(), getattr(cd, k)()
+        ints["chain stripe " + k], ints["chain dense " + k] = a, b
+        check("1D chain stripe vs dense " + k, dmax(a, b), bound)
+    ps = pbc.make_hplane_supercell(nkx=2, nky=2, Rx=2.0, Ry=2.4, vac=8.0,
+                                   device=device)
+    pd = pbc.PbcCell(ps.atoms, ps.a, basis="sto-3g", device=device)
+    for k, bound in (("intor_ovlp", 1e-10), ("intor_hcore", 1e-8)):
+        a, b = getattr(ps, k)(), getattr(pd, k)()
+        ints["plane stripe " + k], ints["plane dense " + k] = a, b
+        check("2x2 plane stripe vs dense " + k, dmax(a, b), bound)
+    xs = _h2_crystal((2, 2, 1), True, device)
+    xd = _h2_crystal((2, 2, 1), False, device)
+    eriF, dense = xs.eri_trans_full(), xd.intor_eri()
+    ints["crystal eri_trans_full"], ints["crystal dense eri"] = eriF, dense
+    for k, bound in (("intor_ovlp", 1e-10), ("intor_hcore", 1e-8)):
+        a, b = getattr(xs, k)(), getattr(xd, k)()
+        ints["crystal stripe " + k] = a
+        check("2x2x1 crystal stripe vs dense " + k, dmax(a, b), bound)
+    check("2x2x1 eri_trans_full vs dense reindexed",
+          dmax(eriF, _full_from_dense(dense, xs.ncells_tr, xs.nao_cell)),
+          1e-9)
+    L = 4.0
+    for stripe in (True, False):
+        c = pbc.PbcCell([("C", (0.0, 0.0, 0.15)),
+                         ("C", (0.0, 0.0, L / 2 + 0.15))],
+                        np.diag([8.0, 8.0, L]), basis="gth-szv",
+                        pseudo="gth-pade", precision=1e-9, device=device)
+        if stripe:
+            c.set_translations(2, np.array([[0.0, 0.0, 0.0],
+                                            [0.0, 0.0, L / 2]]))
+        ints["GTH cell %s hcore" % ("stripe" if stripe else "dense")] = \
+            c.intor_hcore()
+    check("GTH-PADE C cell stripe vs dense hcore",
+          dmax(ints["GTH cell stripe hcore"], ints["GTH cell dense hcore"]),
+          1e-12)
+
+    # intor_eri_rs converged on a sharp pair
+    bd = {("H", "sharp"): [(0, [(5.4, 1.0)]), (0, [(0.2, 1.0)])]}
+    kw = dict(basis="sharp", basis_data=bd, unit="B", precision=1e-8,
+              device=device)
+    at2 = [("H", (0, 0, 0)), ("H", (1.5, 0, 0))]
+    sharp = pbc.PbcCell(at2, np.eye(3) * 12.0, **kw)
+    e_rs, e_bare = sharp.intor_eri_rs(omega=1.0), sharp.intor_eri()
+    e_hi = pbc.PbcCell(at2, np.eye(3) * 12.0, gmax=3 * sharp.gmax,
+                       **kw).intor_eri()
+    ints["sharp intor_eri_rs"], ints["sharp 3x gmax eri"] = e_rs, e_hi
+    d_bare = dmax(e_rs, e_bare)
+    check("sharp pair: bare mesh underconverged |rs - bare| > 1e-3", d_bare,
+          1e-3, ok=d_bare > 1e-3)
+    check("sharp pair: |rs - 3x gmax|", dmax(e_rs, e_hi), 1e-7)
+
+    # the generated DZVP basis is variational against SZV (host)
+    h2 = [("H", (0.0, 0.0, 0.0)), ("H", (0.0, 0.0, 1.4))]
+    E_szv = wl.gth_rhf(h2, {("H", "tpu-szv"): make_gth_valence_basis("H")},
+                       2)[0]
+    E_dzvp, S = wl.gth_rhf(h2, {("H", "tpu-dzvp"): make_gth_dzvp_basis("H")},
+                           2)
+    smin = float(np.linalg.eigvalsh(S).min())
+    check("DZVP H2: E_dzvp - E_szv < -0.010", E_dzvp - E_szv, -0.010)
+    check("DZVP H2: E_dzvp < -1.105", E_dzvp, -1.105)
+    check("DZVP H2: overlap eigenvalue > 1e-6", smin, 1e-6, ok=smin > 1e-6)
+    return ints, checks
+
+
+def phase_pbc_oracles(device, card):
+    """14a: the oracles on the card and on the CPU; every integral card
+    vs CPU within 1e-10 relative."""
+    from libdmet_preview_tpu_torch.ints import native
+    if native.get_sr_lib() is None:
+        raise AssertionError("14a: the native short-range core did not "
+                             "build (%s)" % native._SR_SO.name)
+    print("14a native short-range core: %s" % native._SR_SO.name)
+    cpu = torch.device("cpu")
+    bad = []
+    runs = {}
+    for dev, label in ((device, card), (cpu, "cpu")):
+        t0 = time.perf_counter()
+        runs[label] = pbc_oracles(dev)
+        _sync(dev)
+        print("14a oracles [%s]: %.2f s" % (label, time.perf_counter() - t0))
+        for name, (v, bound, ok) in runs[label][1].items():
+            print("14a [%s] %-48s %.6e (bound %.0e) %s"
+                  % (label, name, v, bound, "ok" if ok else "FAILED"))
+            if not ok:
+                bad.append("%s [%s]" % (name, label))
+    tol = PBC_TOL["card vs CPU"]
+    worst = 0.0
+    for name, a in runs[card][0].items():
+        b = runs["cpu"][0][name]
+        rel = float((a.cpu() - b).abs().max() / b.abs().max())
+        worst = max(worst, rel)
+        if not rel <= tol:
+            bad.append("card vs CPU " + name)
+    print("14a card vs CPU: %d integrals, largest relative difference %.3e "
+          "(tol %.0e)" % (len(runs[card][0]), worst, tol))
+    if bad:
+        raise AssertionError("14a failed: %s" % bad)
+
+
+def _print_cell_stages(label, card, sec):
+    for k, v in sec.items():
+        print("%s [%s]: stage %-30s %.4f s (%d calls)"
+              % (label, card, k, sum(v), len(v)))
+
+
+def _cell_lattice(nk, device, card, label):
+    """make_hchain_supercell -> make_hchain_pbc_lattice on `device`, the
+    cell's integral stages timed.  Returns (Lat, meta, stage seconds,
+    build seconds)."""
+    from libdmet_preview_tpu_torch import workloads as wl
+    from libdmet_preview_tpu_torch.utils import timer
+    _sync(device)
+    t0 = time.perf_counter()
+    with timer.recording() as sec:
+        cell = wl.hchain_cell(nk, device)
+        Lat, meta = wl.hchain_lattice(cell, device)
+    _sync(device)
+    wall = time.perf_counter() - t0
+    ints = meta["ints"]
+    print("%s [%s]: make_hchain_supercell(nk=%d) -> make_hchain_pbc_lattice"
+          ": nao %d, mesh %s (%d G), long-range mesh %d G, %.2f s (E_hf "
+          "%.12f, Cholesky naux %d)"
+          % (label, card, nk, ints.nao, cell.mesh, int(np.prod(cell.mesh)),
+             cell.coulG_rs(1.0)[0].shape[0], wall, meta["E_hf"],
+             Lat.chol_L.shape[0]))
+    _print_cell_stages(label, card, sec)
+    return Lat, meta, sec, wall
+
+
+def _run_counted_loop(Lat, meta, device, card, label):
+    """The IB FCI loop on the cell's lattice, the syrk launches counted
+    from 0.  Returns (E, records, launches, wall)."""
+    from libdmet_preview_tpu_torch import workloads as wl
+    from libdmet_preview_tpu_torch.ops import eri_kernels as ek
+    solver = wl.hchain_solver("FCI", device)
+    _sync(device)
+    ek.syrk_df.launches = 0
+    ek.syrk_df.cross_launches = 0
+    t0 = time.perf_counter()
+    with _counted_plain_calls() as plain_calls:
+        E, recs = wl.run_hchain_dmet(Lat, meta, solver, wl.IB_PROTOCOL)
+    _sync(device)
+    wall = time.perf_counter() - t0
+    launches, cross = ek.syrk_df.launches, ek.syrk_df.cross_launches
+    print("%s IB FCI loop [%s]: E/cell %.12f, %d iterations, %.4f s per "
+          "iteration; syrk_df launches %d (cross %d) at (naux, neo) = "
+          "(%d, %d), plain-version calls on CUDA tensors %d"
+          % (label, card, E, len(recs), wall / len(recs), launches, cross,
+             Lat.chol_L.shape[0], recs[-1]["neo"], plain_calls["cuda"]))
+    if launches != len(recs) or cross != 0 or plain_calls["cuda"] != 0:
+        raise AssertionError("%s: syrk launches %d for %d iterations "
+                             "(cross %d, plain %d)" % (
+                                 label, launches, len(recs), cross,
+                                 plain_calls["cuda"]))
+    return E, recs, launches, wall
+
+
+def phase_pbc_hchain(device, card):
+    """14b: the reference's H chain (nk = 3) built by the port's cell on
+    the card: its integrals against the JAX engine's file, the IB FCI loop
+    at the anchor and the JAX loop's value, the UHF non-interacting bath
+    from the cell.  Returns (tri launches, (naux, neo))."""
+    from libdmet_preview_tpu_torch import workloads as wl
+    from libdmet_preview_tpu_torch.models.engine_ints import load_engine_ints
+    label = "14b H chain nk=3"
+    bad = []
+    # the main path: counts start at 0 in _run_counted_loop
+    Lat, meta, _, _ = _cell_lattice(3, device, card, label)
+    E, recs, launches, _ = _run_counted_loop(Lat, meta, device, card, label)
+    ints, ref = meta["ints"], load_engine_ints(wl.HCHAIN_FILE)
+    for k in ("S", "hcore", "eri", "S12", "S2"):
+        d = float(np.abs(getattr(ints, k) - getattr(ref, k)).max())
+        print("%s: %-5s |port cell - JAX engine file| %.3e (tol %.0e)"
+              % (label, k, d, PBC_TOL["vs file"]))
+        if not d <= PBC_TOL["vs file"]:
+            bad.append(k)
+    d = abs(ints.e_nuc - ref.e_nuc)
+    print("%s: e_nuc |port cell - JAX engine file| %.3e" % (label, d))
+    if not d <= PBC_TOL["vs file"]:
+        bad.append("e_nuc")
+    anchor, tol = wl.HCHAIN_ANCHORS["IB FCI"]
+    jax = wl.HCHAIN_JAX["IB FCI"]
+    print("%s IB FCI: anchor %.12f (diff %.3e, tol %.0e), JAX loop %.12f "
+          "(diff %.3e, tol %.0e)" % (label, anchor, E - anchor, tol, jax,
+                                     E - jax, wl.IB_JAX_TOL))
+    if not abs(E - anchor) < tol:
+        bad.append("IB FCI anchor")
+    if not abs(E - jax) <= wl.IB_JAX_TOL:
+        bad.append("IB FCI JAX value")
+    t0 = time.perf_counter()
+    E_nib, afm, hf_err = wl.run_hchain_nib_uhf(meta["cell"], device)
+    anchor, tol = wl.HCHAIN_ANCHORS["NIB UHF"]
+    print("%s NIB UHF from the cell [%s]: E/cell %.12f, anchor %.12f (diff "
+          "%.3e, tol %.0e), max |rho_a - rho_b| %.4f, HF energy error "
+          "%.3e, %.2f s" % (label, card, E_nib, anchor, E_nib - anchor,
+                            tol, afm, hf_err, time.perf_counter() - t0))
+    if not (abs(E_nib - anchor) < tol and afm > 0.3 and hf_err < 1e-7):
+        bad.append("NIB UHF")
+    if bad:
+        raise AssertionError("14b failed: %s" % bad)
+    return launches, (Lat.chol_L.shape[0], recs[-1]["neo"])
+
+
+def phase_pbc_full(device, card):
+    """14c: the nk = 6 chain (nao 24, 485,875 long-range G vectors) on the
+    card: integral stages, peak memory, the long-range stage's idle share
+    and device events, the IB FCI loop with its launches, all held to the
+    JAX engine's recorded values; the tri kernel at the loop's shape; and
+    eri_trans_full on the 3 x 3 x 3 H2 crystal against the card's dense
+    ERI reindexed.  Returns (launches, max_abs_err, the kernel's record
+    at the loop's shape)."""
+    from libdmet_preview_tpu_torch import workloads as wl
+    from libdmet_preview_tpu_torch.ints import pbc
+    nk = wl.HCHAIN_FULL_NK
+    label = "14c H chain nk=%d" % nk
+    bad = []
+    torch.cuda.reset_peak_memory_stats()
+    # the main path: counts start at 0 in _run_counted_loop
+    Lat, meta, sec, wall = _cell_lattice(nk, device, card, label)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    E, recs, launches, loop_s = _run_counted_loop(Lat, meta, device, card,
+                                                  label)
+    print("%s [%s]: peak device memory of the lattice build %.2f GiB"
+          % (label, card, peak))
+    cell, ints = meta["cell"], meta["ints"]
+    # the long-range ERI stage alone, profiled: pair FT on the coarse mesh
+    # + the weighted Gram
+    Gl, wl_ = cell.coulG_rs(1.0)
+    w_t = torch.as_tensor(wl_, device=device)
+    cell._ft_cache = None
+
+    def lr_stage():
+        f = cell._ft_aopair_impl(Gl)
+        return pbc._wgram(f.reshape(f.shape[0], -1), w_t)
+
+    lr_stage()
+    with _Profiled() as prof:
+        t0 = time.perf_counter()
+        lr_stage()
+        _sync(device)
+        lr_s = time.perf_counter() - t0
+    print("%s [%s]: long-range ERI stage (pair FT of %d G x %d x %d + "
+          "Gram) %.4f s, %d device events, idle share %s"
+          % (label, card, Gl.shape[0], cell.nao, cell.nao, lr_s,
+             prof.n_device_events, prof.idle))
+    ref = wl.PBC_JAX[nk]
+    got = {"nao": ints.nao, "e_nuc": ints.e_nuc, "E_hf": meta["E_hf"],
+           "S_fro": float(np.linalg.norm(ints.S)),
+           "hcore_fro": float(np.linalg.norm(ints.hcore)),
+           "eri_fro": float(np.linalg.norm(ints.eri.reshape(-1)))}
+    for k, v in got.items():
+        rel = abs(v - ref[k]) / abs(ref[k])
+        print("%s: %-9s port %.15g, JAX engine %.15g, relative %.3e (tol "
+              "%.0e)" % (label, k, v, ref[k], rel, wl.PBC_JAX_RTOL))
+        if not rel <= wl.PBC_JAX_RTOL:
+            bad.append(k)
+    # the loop stops at dE < 1e-6 and its vcor fit's flat valley moves
+    # the end point: held to the JAX loop at IB_JAX_TOL, as in 11a / 14b
+    d = E - ref["E_ib_fci"]
+    print("%s: E_ib_fci  port %.15g, JAX loop %.15g, diff %.3e (tol %.0e)"
+          % (label, E, ref["E_ib_fci"], d, wl.IB_JAX_TOL))
+    if not abs(d) <= wl.IB_JAX_TOL:
+        bad.append("E_ib_fci")
+    print("%s: %d iterations (JAX loop %d)" % (label, len(recs),
+                                               ref["iterations"]))
+    shape = (Lat.chol_L.shape[0], recs[-1]["neo"])
+    err, ms, plain_ms, bound, by = tri_kernel_at(shape, device, card)
+
+    # eri_trans_full on the 3 x 3 x 3 H2 crystal (27 cells)
+    _sync(device)
+    t0 = time.perf_counter()
+    xs = _h2_crystal(PBC_CRYSTAL, True, device)
+    eriF = xs.eri_trans_full()
+    _sync(device)
+    t_f = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    xd = _h2_crystal(PBC_CRYSTAL, False, device)
+    dense = xd.intor_eri()
+    _sync(device)
+    t_d = time.perf_counter() - t0
+    d = float((eriF - _full_from_dense(dense, xs.ncells_tr,
+                                       xs.nao_cell)).abs().max())
+    print("14c H2 crystal %s (%d cells, nao %d, %d G) [%s]: eri_trans_full "
+          "%.3f s, dense intor_eri %.3f s, |full - dense reindexed| %.3e "
+          "(tol %.0e)" % ("x".join(map(str, PBC_CRYSTAL)), xs.ncells_tr,
+                          xs.nao, int(np.prod(xs.mesh)), card, t_f, t_d, d,
+                          PBC_TOL["eri_trans_full"]))
+    if not d <= PBC_TOL["eri_trans_full"]:
+        bad.append("eri_trans_full")
+    if bad:
+        raise AssertionError("14c failed: %s" % bad)
+    return launches, err, {
+        "shape": list(shape), "launches": launches, "ms": ms,
+        "plain_ms": plain_ms, "library_ms": plain_ms, "bound_ms": bound,
+        "bound_by": by}
+
+
+def phase_pbc(device, card):
+    """Phase 14.  Returns the tri kernel's launches on the cell-built
+    H-chain paths, and its max_abs_err and record at the nk = 6 loop's
+    shape."""
+    t0 = time.perf_counter()
+    phase_pbc_oracles(device, card)
+    n3, shape3 = phase_pbc_hchain(device, card)
+    n6, err, at = phase_pbc_full(device, card)
+    at["launches_nk3"] = n3
+    at["shape_nk3"] = list(shape3)
+    print("14 periodic cell phase [%s]: %.1f s" % (card,
+                                                   time.perf_counter() - t0))
+    return n3 + n6, err, at
+
 
 def main():
     t_start = time.perf_counter()
@@ -4202,8 +4609,11 @@ def main():
         t13 = time.perf_counter()
         launches_dft, err_dft, at_dft = phase_dft(device, card)
         t13 = time.perf_counter() - t13
+        t14 = time.perf_counter()
+        launches_pbc, err_pbc, at_pbc = phase_pbc(device, card)
+        t14 = time.perf_counter() - t14
     max_abs["syrk_df"] = max(max_abs["syrk_df"], err_chol, err_gso,
-                             err_hchain, err_dft)
+                             err_hchain, err_dft, err_pbc)
     print("card: %s" % card)
     naux, neo = PATH_SHAPE
     npair = neo * (neo + 1) // 2
@@ -4219,7 +4629,8 @@ def main():
               "abinitio_hchain": launches_hchain,
               "abinitio_cas": launches_cas["syrk_df"],
               "hchain_cas": launches_hchain_cas,
-              "dft_in_dmet": launches_dft}),
+              "dft_in_dmet": launches_dft,
+              "pbc_hchain": launches_pbc}),
             ("syrk_df_cross", "cross",
              "libdmet_preview_tpu/ops/pallas_eri.py:45",
              {"abinitio_uhf": launches_ai["syrk_df_cross"],
@@ -4259,8 +4670,12 @@ def main():
     kernels[0]["at_abinitio_hchain_shape"] = at_hchain
     # ... and the shape the full-width DFT-in-DMET ring gives it (phase 13)
     kernels[0]["at_dft_in_dmet_shape"] = at_dft
-    print("chip_smoke total: %.1f s, of it phase 12 %.1f s, phase 13 %.1f s "
-          "[%s]" % (time.perf_counter() - t_start, t12, t13, card))
+    # ... and the shape the nk = 6 H chain built by the port's cell gives
+    # it (phase 14)
+    kernels[0]["at_pbc_hchain_full_shape"] = at_pbc
+    print("chip_smoke total: %.1f s, of it phase 12 %.1f s, phase 13 %.1f s, "
+          "phase 14 %.1f s [%s]" % (time.perf_counter() - t_start, t12, t13,
+                                    t14, card))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

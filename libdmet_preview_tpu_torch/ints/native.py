@@ -1,7 +1,9 @@
 """
-Build and ctypes binding of the native integral core, csrc/_gto_core.cpp
-(PyTorch port of libdmet_preview_tpu/ints/native.py: get_lib and
-eri_s_shells).
+Build and ctypes binding of the native integral cores (PyTorch port of
+libdmet_preview_tpu/ints/native.py): csrc/_gto_core.cpp (get_lib,
+eri_s_shells) and csrc/_sr_core.cpp, the periodic engine's short-range
+lattice sums (get_sr_lib, sr_hermite_sum, sr_cand_sum and the
+erfc_eri_rows entry point that ints.pbc calls directly).
 
 The O(nao^4) s-shell ERI loop runs in C++, compiled at first use with
 `g++ -O3 -shared -fPIC` into build/native/ beside the package (never into
@@ -12,6 +14,8 @@ a private temporary file and renames it into place, which is atomic, so
 concurrent processes see either no library or a complete one.  When g++
 fails the core warns and the caller uses the NumPy loop
 (ints.gto.eri_s_numpy); `get_lib() is not None` says which one ran.
+The short-range core is built the same way; without it ints.pbc takes its
+NumPy branches (`get_sr_lib() is not None` says which one ran).
 """
 
 import ctypes
@@ -86,6 +90,93 @@ def get_lib():
     lib.eri_s_shells.restype = None
     _LIB = lib
     return _LIB
+
+
+_SR_SRC_DATA, _SR_SO = _src_snapshot(_PKG_DIR / "csrc" / "_sr_core.cpp")
+_SR_LIB = None
+_SR_TRIED = False
+
+
+def get_sr_lib():
+    """The loaded short-range core (csrc/_sr_core.cpp), or None (the
+    NumPy branches of ints.pbc are used)."""
+    global _SR_LIB, _SR_TRIED
+    if _SR_LIB is not None or _SR_TRIED:
+        return _SR_LIB
+    _SR_TRIED = True
+    if not _SR_SO.is_file() and not _build_snapshot(_SR_SRC_DATA, _SR_SO,
+                                                    timeout=180):
+        return None
+    try:
+        lib = ctypes.CDLL(str(_SR_SO))
+    except OSError as e:
+        log.warn("native short-range core load failed (%s)", e)
+        return None
+    f8 = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
+    i8 = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+    i64, dbl = ctypes.c_int64, ctypes.c_double
+    lib.sr_hermite_sum.argtypes = [i64, i64, i64, f8, f8, i8, dbl, dbl,
+                                   i64, f8, f8]
+    lib.sr_hermite_sum.restype = None
+    lib.sr_cand_sum.argtypes = [i64, i64, i64, f8, i8, i8, i8, f8, f8,
+                                dbl, dbl, dbl, i64, f8, f8]
+    lib.sr_cand_sum.restype = None
+    lib.erfc_eri_rows.argtypes = [
+        i64, i64, i64, i64, f8, f8, f8, dbl, i64, i8, f8, f8, f8,
+        f8, f8, f8, dbl, dbl, dbl, i64, i64, i64, ctypes.c_void_p]
+    lib.erfc_eri_rows.restype = None
+    _SR_LIB = lib
+    return _SR_LIB
+
+
+def sr_hermite_sum(lsum, PC, wz, kimg, nimg, alpha, kernel):
+    """S[(t,u,v) flat, img] = sum_k wz_k R_tuv(alpha; PC_k) (kernel 0:
+    Coulomb, 1: Gaussian; alpha may be complex); returns (S_re, S_im), or
+    None when the core is unavailable or lsum > 4."""
+    lib = get_sr_lib()
+    if lib is None or lsum > 4:
+        return None
+    PC = np.ascontiguousarray(PC, dtype=np.float64)
+    wz = np.ascontiguousarray(wz, dtype=np.float64)
+    kimg = np.ascontiguousarray(kimg, dtype=np.int64)
+    if wz.shape != (PC.shape[0],) or kimg.shape != (PC.shape[0],):
+        raise ValueError("sr_hermite_sum: PC, wz and kimg disagree")
+    if kimg.size and not (0 <= kimg.min() and kimg.max() < nimg):
+        raise ValueError("sr_hermite_sum: image index out of range")
+    dim = (lsum + 1) ** 3
+    S_re = np.zeros((dim, nimg))
+    S_im = np.zeros((dim, nimg))
+    a = complex(alpha)
+    lib.sr_hermite_sum(lsum, PC.shape[0], nimg, PC.reshape(-1), wz, kimg,
+                       float(a.real), float(a.imag), int(kernel),
+                       S_re.reshape(-1), S_im.reshape(-1))
+    return S_re, S_im
+
+
+def sr_cand_sum(lsum, P, inv, cand_img, cand_c, ctrs, Zs, rng2, alpha,
+                kernel):
+    """Fused candidate screen + Hermite kernel sum (sr_cand_sum in
+    csrc/_sr_core.cpp): for each candidate (image, center) pair whose image
+    this primitive pair keeps (inv[image] >= 0) and whose |P - C|^2 <
+    rng2, adds Zs[center] R_tuv(alpha; P - C) to that image's row.  The
+    arrays must be C-contiguous float64 / int64.  Returns (S_re, S_im) of
+    shape ((lsum+1)^3, nimg_p), or None when the core is unavailable or
+    lsum > 4."""
+    lib = get_sr_lib()
+    if lib is None or lsum > 4:
+        return None
+    nimg_p = P.shape[0]
+    if cand_img.shape != cand_c.shape or Zs.shape[0] != ctrs.shape[0]:
+        raise ValueError("sr_cand_sum: candidate arrays disagree")
+    dim = (lsum + 1) ** 3
+    S_re = np.zeros((dim, nimg_p))
+    S_im = np.zeros((dim, nimg_p))
+    a = complex(alpha)
+    lib.sr_cand_sum(lsum, cand_img.shape[0], nimg_p, P.reshape(-1),
+                    inv, cand_img, cand_c, ctrs.reshape(-1), Zs,
+                    float(rng2), float(a.real), float(a.imag),
+                    int(kernel), S_re.reshape(-1), S_im.reshape(-1))
+    return S_re, S_im
 
 
 def eri_s_shells(shells):

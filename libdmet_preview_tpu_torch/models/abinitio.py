@@ -6,9 +6,11 @@ Each factory takes the engine's arrays as an EngineInts record
 (models/engine_ints.py); make_molecule_lattice and make_h_ring_lattice
 also take a port molecule (ints.gto.Mole / ints.md.MoleGeneral), whose
 record they make with mole_engine_ints and which they keep in
-meta["mole"], as the JAX factories do (the periodic engine, PbcCell, is
-not ported yet).  From there the pipeline is the JAX package's, on
-`device`:
+meta["mole"], and make_hchain_pbc_lattice / make_hchain_pbc_lattice_uhf a
+port cell (ints.pbc.PbcCell, e.g. make_hchain_supercell), whose record
+they make with cell_engine_ints against MINAO and keep in meta["cell"],
+as the JAX factories do.  From there the pipeline is the JAX package's,
+on `device`:
 
     S, hcore, ERI (EngineInts)
     molecular / supercell RHF or UHF     (solvers.scf.SCF, Fock on device)
@@ -38,7 +40,8 @@ from libdmet_preview_tpu_torch.lo.lowdin import _h, lowdin_orth
 from libdmet_preview_tpu_torch.utils import logger as log
 from libdmet_preview_tpu_torch.utils.misc import as_f64, as_tensor, to_host
 from libdmet_preview_tpu_torch.models.engine_ints import (  # noqa: F401
-    EngineInts, load_engine_ints, mole_engine_ints, save_engine_ints)
+    EngineInts, cell_engine_ints, load_engine_ints, mole_engine_ints,
+    save_engine_ints)
 
 
 class AbInitioHam(object):
@@ -177,9 +180,12 @@ def _lo_operators(ints, C, dm, device):
 
 
 def _as_engine_ints(ints, ncells, minimal_ref):
-    """(EngineInts, the molecule or None) of a factory's input."""
+    """(EngineInts, the molecule or cell, or None) of a factory's input."""
+    from libdmet_preview_tpu_torch.ints.pbc import PbcCell
     if isinstance(ints, EngineInts):
         return ints, None
+    if isinstance(ints, PbcCell):
+        return cell_engine_ints(ints, minimal_ref=minimal_ref), ints
     mol = ints
     return mole_engine_ints(mol, ncells=ncells or len(mol.atoms),
                             minimal_ref=minimal_ref), mol
@@ -330,16 +336,20 @@ def attach_ks(Lat, meta, xc="lsda", hyb=0.0, n_rad=60, n_theta=12,
 def make_hchain_pbc_lattice(ints, localization="iao", chol_tol=1e-9,
                             device=torch.device("cuda")):
     """Ab initio DMET lattice for the periodic H chain (the BvK torus of
-    ints.ncells cells; EngineInts of ints.pbc.make_hchain_supercell in the
-    JAX package, e.g. load_engine_ints("hchain_nk3_nH2_R1.5_vac10_3-21g.npz")):
-    RHF, IAO(+PAO) localization against the periodized minimal basis (or
-    Lowdin), stripes symmetrized over the translations.
+    ints.ncells cells): `ints` is the cell, ints.pbc.make_hchain_supercell
+    (its integrals are made with cell_engine_ints, the IAO reference being
+    MINAO, and the cell is kept in meta["cell"]), or its EngineInts, e.g.
+    load_engine_ints("hchain_nk3_nH2_R1.5_vac10_3-21g.npz"), which the JAX
+    engine wrote.  RHF, IAO(+PAO) localization against the periodized
+    minimal basis (or Lowdin), stripes symmetrized over the translations.
 
     Energies are ELECTRONIC-only (H0 = 0), the reference's E(DMET)
     convention.  Returns (Lat, meta); meta['eri_lo'] (a device tensor)
     drives charge self-consistency through update_ham_dense."""
     from libdmet_preview_tpu_torch.models.lattice import ChainLattice
     from libdmet_preview_tpu_torch.ops.eri_transform import cholesky_eri
+    ints, cell = _as_engine_ints(
+        ints, None, "minao" if localization == "iao" else None)
     nk, nH = ints.ncells, ints.atoms_per_cell
     nlo = ints.nao_atom * nH                  # LOs per unit cell
     myscf, E_hf, dm = _rhf_ao(ints, device, MaxIter=300)
@@ -369,18 +379,22 @@ def make_hchain_pbc_lattice(ints, localization="iao", chol_tol=1e-9,
             "e_nuc": ints.e_nuc, "C_ao_lo": C, "eri_lo": eri_lo,
             "h_lo": h_lo, "fock_lo": fock_lo, "rdm1_lo": rdm1_lo,
             "nlo": nlo, "nval": nval_cell, "nvirt": nvirt_cell, "S": S}
+    if cell is not None:
+        meta["cell"] = cell
     return Lat, meta
 
 
 def make_hchain_pbc_lattice_uhf(ints, device=torch.device("cuda")):
-    """Spin-polarized (UHF) variant of make_hchain_pbc_lattice: AFM-seeded
-    supercell UHF, PER-SPIN IAO(+PAO) localization, all lattice operators
-    and the unit-cell ERI blocks (aa, bb, ab) in the spin-dependent LO
-    bases.  Supports the NIB workflow (spin-blocked eri_imp; no Cholesky
-    interacting-bath factors)."""
+    """Spin-polarized (UHF) variant of make_hchain_pbc_lattice (`ints`: the
+    cell or its EngineInts): AFM-seeded supercell UHF, PER-SPIN IAO(+PAO)
+    localization, all lattice operators and the unit-cell ERI blocks
+    (aa, bb, ab) in the spin-dependent LO bases.  Supports the NIB
+    workflow (spin-blocked eri_imp; no Cholesky interacting-bath
+    factors)."""
     from libdmet_preview_tpu_torch.models.integral import Integral
     from libdmet_preview_tpu_torch.models.lattice import ChainLattice
     from libdmet_preview_tpu_torch.solvers.scf import SCF, _veff_uhf
+    ints, cell = _as_engine_ints(ints, None, "minao")
     nk, nH = ints.ncells, ints.atoms_per_cell
     natom, nao_atom = ints.natom, ints.nao_atom
     nlo = nao_atom * nH
@@ -436,6 +450,8 @@ def make_hchain_pbc_lattice_uhf(ints, device=torch.device("cuda")):
             "e_nuc": ints.e_nuc, "C_ao_lo": C, "h_lo": h_lo,
             "fock_lo": fock_lo, "rdm1_lo": rdm1_lo, "nlo": nlo, "S": S,
             "eri_lo": (eri_aa, eri_bb, eri_ab)}
+    if cell is not None:
+        meta["cell"] = cell
     return Lat, meta
 
 

@@ -7,11 +7,13 @@ Hamiltonian and ERI of the whole system (a BvK supercell, a ring or a
 molecule), its nuclear repulsion and electron count, the atom layout, and
 for IAO localization the cross overlap S12 with the minimal reference
 basis and that basis' own overlap S2.  mole_engine_ints makes one from the
-port's molecular engine (ints.gto.Mole, ints.md.MoleGeneral); the periodic
-engine is not ported yet, so the periodic H chain's record is kept as an
-.npz file in libdmet_preview_tpu_torch/data/, written from the JAX engine
-by scripts/dump_engine_ints_torch.py (as are the H ring's, which
-mole_engine_ints now reproduces).
+port's molecular engine (ints.gto.Mole, ints.md.MoleGeneral) and
+cell_engine_ints from its periodic engine (ints.pbc.PbcCell).  The .npz
+files in libdmet_preview_tpu_torch/data/ hold the records the JAX engine
+wrote (scripts/dump_engine_ints_torch.py): the periodic H chain's, which
+cell_engine_ints reproduces, and the H ring's, which mole_engine_ints
+reproduces.  A cell or molecule keeps its integrals in memory after the
+first evaluation; nothing is cached on disk.
 """
 
 import os
@@ -112,3 +114,32 @@ def mole_engine_ints(mol, ncells=1, minimal_ref=None):
         source="the port's engine: %d atoms, basis %s%s" % (
             natom, getattr(mol, "basis_name", "general"),
             "" if minimal_ref is None else ", minimal %s" % minimal_ref))
+
+
+def cell_engine_ints(cell, minimal_ref="minao"):
+    """EngineInts of a port PbcCell (ints.pbc; a BvK supercell whose
+    set_translations declared its cells, atom-major with equal AO counts
+    per atom): S, hcore, the range-separated ERI intor_eri_rs, the Ewald
+    energy_nuc, and with `minimal_ref` the periodized cross overlap S12
+    against a PbcCell of that basis on the same atoms and torus, and that
+    cell's overlap S2 (IAO localization).  The arrays are host NumPy, as
+    the .npz records are."""
+    from libdmet_preview_tpu_torch.ints.pbc import PbcCell, cross_ovlp_pbc
+    from libdmet_preview_tpu_torch.utils.misc import to_host
+    natom = len(cell.atoms)
+    S12 = S2 = None
+    if minimal_ref is not None:
+        cell_min = PbcCell(cell.atoms, cell.a, basis=minimal_ref, unit="B",
+                           device=cell.device)
+        S12 = to_host(cross_ovlp_pbc(cell, cell_min))
+        S2 = to_host(cell_min.intor_ovlp())
+    return EngineInts(
+        S=to_host(cell.intor_ovlp()), hcore=to_host(cell.intor_hcore()),
+        eri=to_host(cell.intor_eri_rs()), e_nuc=float(cell.energy_nuc()),
+        nelectron=int(cell.nelectron), natom=natom,
+        nao_atom=cell.nao // natom, ncells=int(cell.ncells_tr or 1),
+        S12=S12, S2=S2,
+        source="the port's periodic engine: %d atoms in %d cells, basis "
+               "%s%s" % (natom, cell.ncells_tr or 1, cell.basis,
+                         "" if minimal_ref is None
+                         else ", minimal %s" % minimal_ref))

@@ -3,12 +3,15 @@ The ab initio workloads and DMET protocols that chip_smoke.py phase 11
 drives on the card and tests/test_torch_abinitio_lattices.py holds to the
 JAX package on the CPU, in one place so that both run the same protocol:
 
-* the periodic H chain (3 k-points, 3-21G, the engine arrays of
-  data/hchain_nk3_nH2_R1.5_vac10_3-21g.npz): the reference's anchors, the
+* the periodic H chain (3 k-points, 3-21G; the engine arrays of
+  data/hchain_nk3_nH2_R1.5_vac10_3-21g.npz, or the port's own cell,
+  hchain_cell, whose integrals equal them): the reference's anchors, the
   JAX package's values on the same integrals, the self-consistent
   interacting-bath loop of tests/test_hchain_pbc.py / tests/
   test_anchors.py (run_hchain_dmet, one iteration replayable from its
-  recorded state), and the UHF non-interacting bath;
+  recorded state), and the UHF non-interacting bath; the same chain at
+  HCHAIN_FULL_NK k-points from the port's cell, held to the JAX engine's
+  values PBC_JAX (chip_smoke.py phase 14);
 * the k-space stripe HF on random translation-symmetric integrals at
   make_diamond_lattice3's width (make_kscf_workload, run_kscf) and its
   dense-supercell check at a small mesh;
@@ -30,6 +33,27 @@ from libdmet_preview_tpu_torch.lo.lowdin import _h
 from libdmet_preview_tpu_torch.utils.misc import to_host
 
 HCHAIN_FILE = "hchain_nk3_nH2_R1.5_vac10_3-21g.npz"
+# the reference's HChain cell (Angstrom; tests/test_hchain_pbc.py), which
+# HCHAIN_FILE holds at nk = 3, and the k-points of the full-width chain
+HCHAIN_CELL = {"nH": 2, "R": 1.5, "vac": 10.0, "basis": "3-21g"}
+HCHAIN_FULL_NK = 6
+# the JAX engine's values on the chain at nk k-points, from
+#     JAX_PLATFORMS=cpu python scripts/pbc_reference_jax.py --nk 6
+# on the CPU: the Ewald energy, the supercell RHF energy, the Frobenius
+# norms of S, hcore and the range-separated ERI (held at PBC_JAX_RTOL),
+# and the IB FCI loop's E/cell under IB_PROTOCOL with its iteration count
+# (held at IB_JAX_TOL: the loop stops at dE < 1e-6)
+PBC_JAX = {
+    3: {"nao": 12, "e_nuc": 0.9962407464773955, "E_hf": -2.60244743963303,
+        "S_fro": 4.548334460238303, "hcore_fro": 3.828145162202471,
+        "eri_fro": 5.445591760842514, "E_ib_fci": -1.2430652635834325,
+        "iterations": 7},
+    6: {"nao": 24, "e_nuc": 1.992481492954795, "E_hf": -5.315609163705615,
+        "S_fro": 6.432311456940024, "hcore_fro": 5.413793359820447,
+        "eri_fro": 8.607913548479884, "E_ib_fci": -1.275461590897076,
+        "iterations": 6},
+}
+PBC_JAX_RTOL = 1e-9
 # the reference's H-chain anchors (README, tests/test_hchain_pbc.py,
 # tests/test_anchors.py) and the tolerance each is held to
 HCHAIN_ANCHORS = {"IB FCI": (-1.243085261466, 1e-4),
@@ -76,7 +100,15 @@ KSCF = {"kmesh": (3, 3, 3), "nlo": 8, "nelec_cell": 8, "nfac": 8,
         "check_kmesh": (2, 2, 1), "seed": 17}
 
 
+def hchain_cell(nk, device):
+    """The port's PbcCell of the H chain at nk k-points (HCHAIN_CELL)."""
+    from libdmet_preview_tpu_torch.ints.pbc import make_hchain_supercell
+    return make_hchain_supercell(nk=nk, device=device, **HCHAIN_CELL)
+
+
 def hchain_lattice(ints, device, uhf=False):
+    """The H-chain lattice (RHF or UHF) of `ints`: its EngineInts, or the
+    PbcCell (hchain_cell), whose integrals the factory then makes."""
     from libdmet_preview_tpu_torch.models import abinitio
     if uhf:
         return abinitio.make_hchain_pbc_lattice_uhf(ints, device=device)
@@ -936,3 +968,134 @@ def replay_dft_dmet_step(Lat, res, solver, device):
         st["basis"].to(device), H1e, solver, st["solver_args"], mu_solver,
         st["last_dmu"])
     return E * Lat.nscsites, nelecImp, to_host(rhoImp)
+
+
+# ----------------------------------------------------------------------
+# the periodic cell's oracles (chip_smoke.py phase 14a,
+# tests/test_torch_{pbc,gth,basisopt}.py)
+# ----------------------------------------------------------------------
+
+H2_CRYSTAL_BASIS = {("H", "tight"): [(0, [(1.3, 1.0), (0.5, 0.4)])]}
+
+
+def h2_crystal_geometry(kmesh, L=4.0):
+    """tests/test_pbc_3d.py's H2 crystal: one H2 (1.4 bohr, along z) per
+    cubic L-bohr cell on a kmesh of cells, cell-major.  Returns (atoms,
+    supercell lattice vectors, cell translations), in bohr; the basis is
+    H2_CRYSTAL_BASIS ("tight")."""
+    t_vecs, atoms = [], []
+    for cx in range(kmesh[0]):
+        for cy in range(kmesh[1]):
+            for cz in range(kmesh[2]):
+                T = np.array([cx * L, cy * L, cz * L])
+                t_vecs.append(T)
+                for xyz in ((0.0, 0.0, 0.0), (0.0, 0.0, 1.4)):
+                    atoms.append(("H", np.asarray(xyz) + T))
+    return atoms, np.diag(np.array(kmesh, float) * L), np.asarray(t_vecs)
+
+
+def gth_quadrature_errors():
+    """tests/test_gth.py's quadrature oracles on the port's ints/gth.py:
+    the C1 Gaussian and complex-step C2 r^2 terms of GTH-PADE carbon, and
+    s (two radial projectors), p and d nonlocal channels built from
+    independent Y_lm formulas, for s and p_x bra shells, on a 90^3 grid
+    of a 7-bohr box.  Returns the largest error of each (local,
+    nonlocal)."""
+    from scipy.special import gamma
+    from libdmet_preview_tpu_torch.ints.gth import (GTH_PADE, _h_full,
+                                                    gauss_block,
+                                                    gth_nl_block)
+    from libdmet_preview_tpu_torch.ints.md import Shell, norm_cart
+    A, B = np.array([0.2, -0.1, 0.3]), np.array([-0.4, 0.5, 0.1])
+    C0 = np.array([0.1, 0.2, -0.2])
+    n, L = 90, 7.0
+    x = (np.arange(n) + 0.5) / n * L - L / 2
+    pts = np.stack(np.meshgrid(x, x, x, indexing="ij"), -1).reshape(-1, 3)
+    w = (L / n) ** 3
+
+    def chi(ctr, e, l):
+        d = pts - ctr
+        g = np.exp(-e * (d ** 2).sum(-1))
+        return norm_cart(e, (l, 0, 0)) * (d[:, 0] if l else 1.0) * g
+
+    def ylm(l, m, d):
+        """r^l Y_lm from hand-coded formulas (not gth.SOLID_HARM)."""
+        x_, y_, z_ = d[:, 0], d[:, 1], d[:, 2]
+        if l == 0:
+            return np.full(len(d), 0.5 / np.sqrt(np.pi))
+        if l == 1:
+            return np.sqrt(3.0 / (4 * np.pi)) * (x_, y_, z_)[m]
+        c = np.sqrt(15.0 / (4 * np.pi))
+        return (c * x_ * y_, c * y_ * z_, np.sqrt(5.0 / (16 * np.pi))
+                * (2 * z_ * z_ - x_ * x_ - y_ * y_), c * x_ * z_,
+                0.5 * c * (x_ * x_ - y_ * y_))[m]
+
+    def proj(l, m, i, rl):
+        d = pts - C0
+        r2 = (d ** 2).sum(-1)
+        nrm = np.sqrt(2.0) / (rl ** (l + 2 * i - 0.5)
+                              * np.sqrt(gamma(l + 2 * i - 0.5)))
+        return nrm * r2 ** (i - 1) * ylm(l, m, d) \
+            * np.exp(-r2 / (2 * rl * rl))
+
+    rloc = GTH_PADE["C"]["rloc"]
+    beta = 1 / (2 * rloc ** 2)
+    rC2 = ((pts - C0) ** 2).sum(-1)
+    gsm = np.exp(-beta * rC2)
+    h = 1e-200
+    pp = {"zion": 6.0, "rloc": 0.3, "cloc": [],
+          "nl": [(0, 0.35, _h_full(0, [8.0, 2.5])),
+                 (1, 0.42, _h_full(1, [3.0])),
+                 (2, 0.38, _h_full(2, [-5.0]))]}
+    err_loc = err_nl = 0.0
+    for l in (0, 1):
+        s1, s2 = Shell(A, l, [(0.9, 1.0)]), Shell(B, 0, [(0.6, 1.0)])
+        chi_a, chi_b = chi(A, 0.9, l), chi(B, 0.6, 0)
+        g = gauss_block(s1, s2, beta + 1j * h, C0)
+        err_loc = max(err_loc,
+                      abs(g.real[0, 0] - w * np.sum(chi_a * chi_b * gsm)),
+                      abs(-(g.imag / h)[0, 0] / rloc ** 2
+                          - w * np.sum(chi_a * chi_b * rC2 / rloc ** 2
+                                       * gsm)))
+        ref = 0.0
+        for lch, rl, hm in pp["nl"]:
+            nr = np.atleast_2d(hm).shape[0]
+            for m in range(2 * lch + 1):
+                pa = [w * np.sum(chi_a * proj(lch, m, i + 1, rl))
+                      for i in range(nr)]
+                pb = [w * np.sum(chi_b * proj(lch, m, i + 1, rl))
+                      for i in range(nr)]
+                ref += np.asarray(pa) @ np.atleast_2d(hm) @ np.asarray(pb)
+        err_nl = max(err_nl, abs(gth_nl_block(s1, s2, pp, C0)[0, 0] - ref))
+    return err_loc, err_nl
+
+
+def gth_rhf(atoms, basis_data, nelec):
+    """Closed-shell GTH-PADE RHF of a molecule on the port's MoleGeneral
+    integrals (host NumPy; tests/test_basisopt_dzvp.py's oracle engine):
+    symmetric orthogonalization, 0.7 / 0.3 density damping from the third
+    iteration, |dE| < 1e-10.  Returns (E, S)."""
+    from libdmet_preview_tpu_torch.ints.gth import gth_pp_molecular
+    from libdmet_preview_tpu_torch.ints.md import MoleGeneral
+    name = next(iter(basis_data))[1]
+    mol = MoleGeneral(atoms, basis=name, basis_data=basis_data)
+    S, eri = mol.intor_ovlp(), mol.intor_eri()
+    V, zions = gth_pp_molecular(mol)
+    hcore = mol.intor_kin() + V
+    R = np.asarray(mol.coords)
+    e_nuc = sum(zions[i] * zions[j] / np.linalg.norm(R[i] - R[j])
+                for i in range(len(atoms)) for j in range(i))
+    s_val, s_vec = np.linalg.eigh(S)
+    X = s_vec[:, s_val > 1e-9] / np.sqrt(s_val[s_val > 1e-9])
+    dm, e_old = np.zeros_like(S), np.inf
+    for it in range(200):
+        F = hcore + np.einsum("pqrs, rs -> pq", eri, dm) \
+            - 0.5 * np.einsum("prqs, rs -> pq", eri, dm)
+        C = X @ np.linalg.eigh(X.T @ F @ X)[1]
+        dm_new = 2.0 * C[:, :nelec // 2] @ C[:, :nelec // 2].T
+        dm = dm_new if it < 2 else 0.7 * dm_new + 0.3 * dm
+        E = 0.5 * np.einsum("pq, pq ->", hcore + F, dm) + e_nuc
+        if abs(E - e_old) < 1e-10 and it > 4:
+            break
+        e_old = E
+    return E, S
