@@ -278,6 +278,37 @@ Phases, in order; any failure raises and the process exits non-zero:
           the H1 asymmetry) and the card's idle share over that step, the
           HF-limit identity of the double counting (1e-11), and the
           symmetric kernel timed at the loop's (naux, neo).
+ 14. the periodic Gaussian cell (ints/pbc, gth, basisopt, the native
+     short-range core): 14a the JAX suite's periodic-engine oracles on the
+     card and the CPU; 14b the reference's H chain built by the port's
+     cell, its integrals against the JAX engine's file and its IB FCI
+     loop; 14c the nk = 6 chain and the 3 x 3 x 3 H2 crystal.
+ 15. the streamed embedding-ERI drivers and diamond (ints/pbc's aft / fft
+     / rs drivers, the 'aft' H2 format, models/abinitio's diamond
+     factories, the threaded native short-range core; the SR ERI rows of
+     15b's and 15c's cells are made in a background thread at nice 19,
+     DiamondRows, from the end of 12b on, and phase 15 builds its
+     lattices from those cells):
+     15a. tests/test_pbc_3d.py's driver oracles (workloads.
+          emb_driver_oracles) on the card and the CPU, card - CPU <= 1e-12
+          relative;
+     15b. make_diamond_lattice(nk=2) at the JAX package's defaults: E_hf
+          (1e-8) and the one-shot DMET(CCSD) (1e-6) against workloads.
+          DIAMOND_JAX, the mean-field (1e-7) and IB-HF (1e-6) identities,
+          exactly one symmetric syrk launch, no cross launch and no
+          plain-version call; the kernel timed at the path's shape;
+     15c. make_diamond_lattice3 on DIAMOND_MESH (2 x 2 x 2: the 3 x 3 x 3
+          build is beyond the phase's budget) at precision 1e-12 through
+          tests/test_diamond333.py's protocol (workloads.run_diamond_dmet):
+          the identities, one electron per site, no syrk launch, E_hf
+          (1e-8), the one-shot (1e-6) and the converged loop (1e-4)
+          against the values the phase recorded on the card
+          (workloads.DIAMOND_RECORDED; at 3 x 3 x 3 also the loop at its
+          JAX anchor, 5e-4); stage seconds (1-body, nuclear LR / SR /
+          GTH, SR rows at omega 1.0 and 0.5, Grams, k-HF, Lowdin), seconds
+          per iteration and stage, peak memory, the idle share of one
+          iteration, and one get_emb_eri_rs replayed on the CPU from the
+          same SR rows and G column (1e-12 relative).
 
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}.
@@ -288,6 +319,7 @@ import json
 import os
 import subprocess
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -4571,6 +4603,349 @@ def phase_pbc(device, card):
     return n3 + n6, err, at
 
 
+# ----------------------------------------------------------------------
+# phase 15: the streamed embedding-ERI drivers and diamond
+# ----------------------------------------------------------------------
+
+DIAMOND_TOL = {"card vs CPU": 1e-12, "E_hf vs JAX": 1e-8,
+               "mean field == SCF": 1e-7, "IB-HF identity": 1e-6,
+               "one-shot vs JAX": 1e-6, "nelec": 0.05, "replay": 1e-12,
+               "loop vs recorded": 1e-4}
+# 15c: the reference's solid is 3 x 3 x 3; its build costs 352 s on the
+# card's host (the host short-range rows, PERF.md section 5), beyond the
+# phase's budget, so the phase keeps the width and cuts the depth
+DIAMOND_MESH = (2, 2, 2)
+DIAMOND_PRECISION = 1e-12     # 15c: tests/test_diamond333.py's precision
+
+
+class DiamondRows(object):
+    """The host short-range ERI rows of phase 15's two diamond cells
+    (15b's nk = 2 chain at omega 1.0; 15c's DIAMOND_MESH at omega 1.0 and
+    0.5), made by the cells' own native core in a background thread while
+    the phases after 12b run: the rows are most of the diamond builds
+    (PERF.md section 5).  The thread sets its nice value to 19 before it starts,
+    and the core's worker threads inherit it, so the rows take only the
+    host cores the earlier phases leave idle (at equal priority they
+    slowed those phases by as much as they saved).  The thread uses no
+    torch and no stage timer; phase 15 waits for it, builds its lattices
+    from these cells (the rows kept on them, as a second call would find
+    them) and prints the seconds each set took here."""
+
+    def __init__(self, device, precision=DIAMOND_PRECISION):
+        from libdmet_preview_tpu_torch.ints import native
+        self.device, self.precision = device, precision
+        self.nthreads = native.num_threads()
+        self.cells, self.seconds, self.error = {}, {}, None
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _run(self):
+        from libdmet_preview_tpu_torch.models.abinitio import diamond_cell
+        # Linux: the nice value of this thread alone (threads it starts
+        # inherit it)
+        os.setpriority(os.PRIO_PROCESS, threading.get_native_id(), 19)
+        try:
+            for kmesh, omegas in (((1, 1, 2), (1.0,)),
+                                  (DIAMOND_MESH, (1.0, 0.5))):
+                cell = diamond_cell(kmesh, precision=self.precision,
+                                    device=self.device)
+                for om in omegas:
+                    t0 = time.perf_counter()
+                    rows = cell._sr_rows(om, self.precision, self.nthreads)
+                    cell._cache[("sr_rows", om, self.precision)] = rows
+                    self.seconds[(kmesh, om)] = time.perf_counter() - t0
+                self.cells[tuple(kmesh)] = cell
+        except Exception as e:      # re-raised by wait() in phase 15
+            self.error = e
+
+    def wait(self):
+        t0 = time.perf_counter()
+        self.thread.join()
+        if self.error is not None:
+            raise self.error
+        for (kmesh, om), sec in self.seconds.items():
+            print("15 SR rows of diamond %s at omega %.1f, made in the "
+                  "background on %d threads at nice 19: %.2f s"
+                  % ("x".join(map(str, kmesh)), om, self.nthreads, sec))
+        print("15 waited %.2f s for them" % (time.perf_counter() - t0))
+
+    @contextlib.contextmanager
+    def cells_in_use(self):
+        """models.abinitio.diamond_cell hands out these cells for their
+        (kmesh, precision) at the default geometry."""
+        from libdmet_preview_tpu_torch.models import abinitio
+        make = abinitio.diamond_cell
+
+        def prewarmed(kmesh, a_ang=3.567, basis="gth-szv",
+                      pseudo="gth-pade", gmax=None, precision=1e-12,
+                      device=self.device):
+            cell = self.cells.get(tuple(kmesh))
+            if (cell is not None and (a_ang, basis, pseudo, gmax, precision)
+                    == (3.567, "gth-szv", "gth-pade", None, self.precision)
+                    and torch.device(device) == torch.device(self.device)):
+                return cell
+            return make(kmesh, a_ang, basis, pseudo, gmax, precision, device)
+
+        abinitio.diamond_cell = prewarmed
+        try:
+            yield
+        finally:
+            abinitio.diamond_cell = make
+
+
+def phase_diamond_oracles(device, card):
+    """15a: tests/test_pbc_3d.py's driver oracles on the card and on the
+    CPU (workloads.emb_driver_oracles); every driver output card vs CPU
+    within 1e-12 relative."""
+    from libdmet_preview_tpu_torch import workloads as wl
+    cpu = torch.device("cpu")
+    bad, runs = [], {}
+    for dev, label in ((device, card), (cpu, "cpu")):
+        t0 = time.perf_counter()
+        runs[label] = wl.emb_driver_oracles(dev)
+        _sync(dev)
+        print("15a driver oracles [%s]: %.2f s" % (label,
+                                                  time.perf_counter() - t0))
+        for name, (v, bound, ok) in runs[label][1].items():
+            print("15a [%s] %-40s %.6e (bound %.0e) %s"
+                  % (label, name, v, bound, "ok" if ok else "FAILED"))
+            if not ok:
+                bad.append("%s [%s]" % (name, label))
+    worst = 0.0
+    for name, a in runs[card][0].items():
+        b = runs["cpu"][0][name]
+        rel = float((a.cpu() - b).abs().max() / b.abs().max())
+        print("15a card vs CPU %-10s relative %.3e" % (name, rel))
+        worst = max(worst, rel)
+        if not rel <= DIAMOND_TOL["card vs CPU"]:
+            bad.append("card vs CPU " + name)
+    print("15a card vs CPU: largest relative difference %.3e (tol %.0e)"
+          % (worst, DIAMOND_TOL["card vs CPU"]))
+    if bad:
+        raise AssertionError("15a failed: %s" % bad)
+
+
+def _diamond_build(kind, device, card, label, **kw):
+    """workloads.diamond_lattice on `device` with its stages timed.
+    Returns (Lat, meta, stage seconds, wall seconds)."""
+    from libdmet_preview_tpu_torch import workloads as wl
+    from libdmet_preview_tpu_torch.ints import native
+    from libdmet_preview_tpu_torch.utils import timer
+    _sync(device)
+    t0 = time.perf_counter()
+    with timer.recording() as sec:
+        Lat, meta = wl.diamond_lattice(kind, device, **kw)
+    _sync(device)
+    wall = time.perf_counter() - t0
+    cell = meta["cell"]
+    print("%s [%s]: %d cells, nao %d, mesh %s, precision %.0e, %d host "
+          "threads: build %.2f s, E_hf/cell %.10f"
+          % (label, card, cell.ncells_tr, cell.nao, cell.mesh,
+             cell.precision, native.num_threads(), wall,
+             meta["E_hf"] / cell.ncells_tr))
+    _print_cell_stages(label, card, sec)
+    return Lat, meta, sec, wall
+
+
+def _diamond_checks(label, res, ref, bad):
+    """The identities of one one-shot and, where ref has them, its values
+    against ref: {key: (value, tol)}."""
+    checks = {"mean field == SCF": (res["E_mf"] - res["E_hf"],
+                                    DIAMOND_TOL["mean field == SCF"]),
+              "IB-HF identity": (res["E_ibhf"] - res["E_hf"],
+                                 DIAMOND_TOL["IB-HF identity"]),
+              "one-shot nelec - 1": (res["n_cc"] - 1.0, DIAMOND_TOL["nelec"])}
+    for k, (v, tol) in ref.items():
+        checks[k] = (v, tol)
+    for k, (v, tol) in checks.items():
+        ok = abs(v) < tol
+        print("%s: %-28s %.3e (tol %.0e) %s" % (label, k, v, tol,
+                                                 "ok" if ok else "FAILED"))
+        if not ok:
+            bad.append(k)
+
+
+def phase_diamond_chain(device, card, nk=2):
+    """15b: make_diamond_lattice(nk=2) at the JAX package's defaults on the
+    card: the one-shot (RHartreeFock -> ConstructImpHam -> IB-HF -> CCSD)
+    held to workloads.DIAMOND_JAX["chain_nk2"], exactly one tri launch per
+    ConstructImpHam, no cross launch, no plain-version call on the card.
+    Returns (tri launches, max_abs_err, the kernel's record at the path's
+    shape)."""
+    from libdmet_preview_tpu_torch import workloads as wl
+    from libdmet_preview_tpu_torch.ops import eri_kernels as ek
+    label = "15b diamond nk=%d" % nk
+    bad = []
+    Lat, meta, _, _ = _diamond_build("chain", device, card, label, nk=nk)
+    # the main path: counts from 0 around the one-shot
+    _sync(device)
+    ek.syrk_df.launches = 0
+    ek.syrk_df.cross_launches = 0
+    t0 = time.perf_counter()
+    with _counted_plain_calls() as plain_calls:
+        res = wl.diamond_one_shot(Lat, meta, device)
+    _sync(device)
+    launches, cross = ek.syrk_df.launches, ek.syrk_df.cross_launches
+    shape = (int(Lat.chol_L.shape[0]), int(res["basis"].shape[-1]))
+    print("%s one-shot [%s]: %.2f s, E_hf %.10f, E_mf %.10f, E_ibhf %.10f, "
+          "E_cc %.10f, n %.6f; syrk_df launches %d (cross %d) at (naux, neo)"
+          " = %s, plain-version calls on CUDA tensors %d"
+          % (label, card, time.perf_counter() - t0, res["E_hf"], res["E_mf"],
+             res["E_ibhf"], res["E_cc"], res["n_cc"], launches, cross,
+             shape, plain_calls["cuda"]))
+    ref = wl.DIAMOND_JAX["chain_nk2"]
+    _diamond_checks(label, res, {
+        "E_hf - JAX": (res["E_hf"] - ref["E_hf"], DIAMOND_TOL["E_hf vs JAX"]),
+        "E_cc - JAX": (res["E_cc"] - ref["E_cc"],
+                       DIAMOND_TOL["one-shot vs JAX"])}, bad)
+    if launches != 1 or cross != 0 or plain_calls["cuda"] != 0:
+        bad.append("launches %d cross %d plain %d" % (
+            launches, cross, plain_calls["cuda"]))
+    err, ms, plain_ms, bound, by = tri_kernel_at(shape, device, card)
+    if bad:
+        raise AssertionError("15b failed: %s" % bad)
+    return launches, err, {
+        "shape": list(shape), "launches": launches, "ms": ms,
+        "plain_ms": plain_ms, "library_ms": plain_ms, "bound_ms": bound,
+        "bound_by": by}
+
+
+def _per_iteration(label, card, sec, n_it):
+    for k in ("mean field", "bath", "H2", "H1", "impurity solve", "energy",
+              "vcor fit"):
+        if k in sec:
+            print("%s [%s]: per iteration %-15s %.4f s" % (
+                label, card, k, sum(sec[k]) / n_it))
+
+
+def phase_diamond_mesh(device, card, kmesh=DIAMOND_MESH,
+                       precision=DIAMOND_PRECISION):
+    """15c: make_diamond_lattice3(kmesh, precision) on the card through
+    tests/test_diamond333.py's protocol (workloads.run_diamond_dmet): E_hf,
+    the one-shot and the converged loop at the JAX package's anchors
+    (workloads.DIAMOND333_ANCHORS, when `anchors`), the identities, no
+    syrk launch, the device half of one get_emb_eri_rs replayed on the CPU
+    from the same SR rows and G column; stage seconds, seconds per
+    iteration, peak memory and the idle share of one iteration."""
+    from libdmet_preview_tpu_torch import workloads as wl
+    from libdmet_preview_tpu_torch.ops import eri_kernels as ek
+    from libdmet_preview_tpu_torch.utils import timer
+    label = "15c diamond %s" % "x".join(map(str, kmesh))
+    # held: the identities, and at precision 1e-12 the values this phase
+    # recorded on the card (workloads.DIAMOND_RECORDED); at 3 x 3 x 3 the
+    # loop also at its JAX anchor (5e-4, the test's own), the E_hf and
+    # one-shot anchors printed (they predate the JAX package's switch of
+    # its builders to the range-separated ERIs: PERF.md section 6)
+    full = precision == 1e-12
+    rec = wl.DIAMOND_RECORDED.get(tuple(kmesh)) if full else None
+    anchors = full and tuple(kmesh) == (3, 3, 3)
+    bad = []
+    torch.cuda.reset_peak_memory_stats()
+    Lat, meta, sec, wall = _diamond_build("mesh", device, card, label,
+                                          kmesh=kmesh, precision=precision)
+    if "SR ERI rows (host)" in sec:
+        print("%s [%s]: SR rows at omega 1.0, 0.5: %s s" % (
+            label, card, ", ".join("%.2f" % x
+                                   for x in sec["SR ERI rows (host)"])))
+    A = wl.DIAMOND333_ANCHORS
+    t0 = time.perf_counter()
+    res = wl.diamond_one_shot(Lat, meta, device)
+    print("%s one-shot [%s]: %.2f s, E_hf %.10f, E_mf %.10f, E_ibhf %.10f, "
+          "E_cc %.10f, n %.6f, neo %d" % (
+              label, card, time.perf_counter() - t0, res["E_hf"],
+              res["E_mf"], res["E_ibhf"], res["E_cc"], res["n_cc"],
+              res["basis"].shape[-1]))
+    if anchors:
+        print("%s: E_hf - JAX anchor %.3e, one-shot E_cc - JAX anchor %.3e "
+              "(the anchors predate the range-separated ERIs)" % (
+                  label, res["E_hf"] - A["E_hf"][0],
+                  res["E_cc"] - A["one-shot"][0]))
+    ref = {}
+    if rec is not None:
+        ref = {"E_hf - recorded": (res["E_hf"] - rec["E_hf"],
+                                   DIAMOND_TOL["E_hf vs JAX"]),
+               "E_cc - recorded": (res["E_cc"] - rec["E_cc"],
+                                   DIAMOND_TOL["one-shot vs JAX"])}
+    _diamond_checks(label, res, ref, bad)
+    # the loop: no hand-written kernel on this path
+    _sync(device)
+    ek.syrk_df.launches = 0
+    ek.syrk_df.cross_launches = 0
+    t0 = time.perf_counter()
+    with timer.recording() as sec_loop:
+        E, n, conv, recs = wl.run_diamond_dmet(Lat, device)
+    _sync(device)
+    loop_s = time.perf_counter() - t0
+    launches = ek.syrk_df.launches + ek.syrk_df.cross_launches
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print("%s loop [%s]: E/cell %.10f, n %.6f, converged %s, %d iterations "
+          "(%s), %.2f s (%.3f s per iteration), syrk_df launches %d, peak "
+          "device memory %.2f GiB" % (
+              label, card, E, n, conv, len(recs),
+              ", ".join("%.8f" % r["E"] for r in recs), loop_s,
+              loop_s / len(recs), launches, peak))
+    _per_iteration(label, card, sec_loop, len(recs))
+    if not conv:
+        bad.append("loop not converged")
+    if anchors:
+        print("%s: loop - JAX anchor %.3e (tol %.0e)" % (
+            label, E - A["loop"][0], A["loop"][1]))
+        if not abs(E - A["loop"][0]) < A["loop"][1]:
+            bad.append("loop anchor (%.3e)" % (E - A["loop"][0]))
+    if rec is not None:
+        # the loop stops at dE < 1e-5: its end moves by ~3e-6 between runs
+        print("%s: loop - recorded %.3e (tol %.0e)" % (
+            label, E - rec["loop"], DIAMOND_TOL["loop vs recorded"]))
+        if not abs(E - rec["loop"]) < DIAMOND_TOL["loop vs recorded"]:
+            bad.append("loop vs recorded")
+    if not abs(n - 1.0) < DIAMOND_TOL["nelec"]:
+        bad.append("nelec")
+    if launches != 0:
+        bad.append("syrk launches %d" % launches)
+    with _Profiled() as prof:
+        wl.run_diamond_dmet(Lat, device, max_iter=1)
+    print("%s [%s]: idle share of one iteration %s (%d device events)"
+          % (label, card, prof.idle, prof.n_device_events))
+    # the device half of one get_emb_eri_rs replayed on the CPU
+    cell = meta["cell"]
+    C = meta["C_ao_lo"][:, :meta["nlo"]]
+    _sync(device)
+    t0 = time.perf_counter()
+    a = cell.get_emb_eri_rs(C)
+    _sync(device)
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    b = wl.cell_on(cell, torch.device("cpu")).get_emb_eri_rs(C.cpu())
+    t_cpu = time.perf_counter() - t0
+    rel = float((a.cpu() - b).abs().max() / b.abs().max())
+    print("%s: get_emb_eri_rs from the kept SR rows and G column: card "
+          "%.3f s, CPU %.3f s, relative difference %.3e (tol %.0e)"
+          % (label, t_card, t_cpu, rel, DIAMOND_TOL["replay"]))
+    if not rel <= DIAMOND_TOL["replay"]:
+        bad.append("replay")
+    if bad:
+        raise AssertionError("15c failed: %s" % bad)
+    return {"iterations": len(recs), "E": E, "peak_GiB": peak,
+            "idle": prof.idle, "build_s": wall, "loop_s": loop_s}
+
+
+def phase_diamond(device, card, rows=None):
+    """Phase 15.  rows: a DiamondRows started earlier (its cells are used),
+    or None.  Returns the tri kernel's launches on the diamond paths, and
+    its max_abs_err and record at 15b's shape."""
+    t0 = time.perf_counter()
+    phase_diamond_oracles(device, card)
+    ctx = contextlib.nullcontext()
+    if rows is not None:
+        rows.wait()
+        ctx = rows.cells_in_use()
+    with ctx:
+        launches, err, at = phase_diamond_chain(device, card)
+        phase_diamond_mesh(device, card)
+    print("15 diamond phase [%s]: %.1f s" % (card, time.perf_counter() - t0))
+    return launches, err, at
+
+
 def main():
     t_start = time.perf_counter()
     device, card = phase_device()
@@ -4585,6 +4960,11 @@ def main():
         t12 = time.perf_counter()
         launches_cas = phase_abinitio_cas(run_d, device, card, E_ccsd)
         t12 = time.perf_counter() - t12
+        # phase 15's host short-range rows, in the background from here
+        # on: after the last of the host BFGS SCFs (phases 6, 9a, 12b),
+        # whose multithreaded dense updates share the host cores' hyper-
+        # threads with the rows' workers whatever their nice value
+        diamond_rows = DiamondRows(device)
         launches_gso, at_gso, err_gso = phase_gso_abinitio(run_d, run_c,
                                                            device, card)
         launches_csc = phase_abinitio_csc(run_d, run_c, device, card)
@@ -4612,8 +4992,12 @@ def main():
         t14 = time.perf_counter()
         launches_pbc, err_pbc, at_pbc = phase_pbc(device, card)
         t14 = time.perf_counter() - t14
+        t15 = time.perf_counter()
+        launches_diamond, err_diamond, at_diamond = phase_diamond(
+            device, card, diamond_rows)
+        t15 = time.perf_counter() - t15
     max_abs["syrk_df"] = max(max_abs["syrk_df"], err_chol, err_gso,
-                             err_hchain, err_dft, err_pbc)
+                             err_hchain, err_dft, err_pbc, err_diamond)
     print("card: %s" % card)
     naux, neo = PATH_SHAPE
     npair = neo * (neo + 1) // 2
@@ -4630,7 +5014,8 @@ def main():
               "abinitio_cas": launches_cas["syrk_df"],
               "hchain_cas": launches_hchain_cas,
               "dft_in_dmet": launches_dft,
-              "pbc_hchain": launches_pbc}),
+              "pbc_hchain": launches_pbc,
+              "diamond": launches_diamond}),
             ("syrk_df_cross", "cross",
              "libdmet_preview_tpu/ops/pallas_eri.py:45",
              {"abinitio_uhf": launches_ai["syrk_df_cross"],
@@ -4673,9 +5058,11 @@ def main():
     # ... and the shape the nk = 6 H chain built by the port's cell gives
     # it (phase 14)
     kernels[0]["at_pbc_hchain_full_shape"] = at_pbc
+    # ... and the shape the nk = 2 diamond chain gives it (phase 15)
+    kernels[0]["at_diamond_shape"] = at_diamond
     print("chip_smoke total: %.1f s, of it phase 12 %.1f s, phase 13 %.1f s, "
-          "phase 14 %.1f s [%s]" % (time.perf_counter() - t_start, t12, t13,
-                                    t14, card))
+          "phase 14 %.1f s, phase 15 %.1f s [%s]"
+          % (time.perf_counter() - t_start, t12, t13, t14, t15, card))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

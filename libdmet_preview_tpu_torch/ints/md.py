@@ -835,6 +835,31 @@ def pair_prim_dense(sh1, sh2, shift=None):
     return pc, E
 
 
+def pair_prim_dense_imgs(sh1, sh2, shifts):
+    """pair_prim_dense for shell 2 at every image B + T at once: (pc
+    (nimg, np12, 6), E (nimg, np12, nc12, h12)), entry [t] equal to
+    pair_prim_dense(sh1, sh2, shifts[t])."""
+    shifts = np.atleast_2d(np.asarray(shifts, dtype=float))
+    nimg = shifts.shape[0]
+    l12 = sh1.l + sh2.l
+    nh = l12 + 1
+    prs = _pair_E3_imgs(sh1, sh2, shifts)
+    nc12 = sh1.nc * sh2.nc
+    pc = np.empty((nimg, len(prs), 6))
+    E = np.zeros((nimg, len(prs), nc12, nh ** 3))
+    for a, (p, c12, P, (Ex, Ey, Ez), _sel) in enumerate(prs):
+        pc[:, a, 0] = p
+        pc[:, a, 1] = c12
+        pc[:, a, 2:5] = P
+        for i, (l1, m1, n1) in enumerate(CART[sh1.l]):
+            for j, (l2, m2, n2) in enumerate(CART[sh2.l]):
+                blk = np.einsum("tT, uT, vT -> Ttuv", Ex[l1, l2, :nh],
+                                Ey[m1, m2, :nh], Ez[n1, n2, :nh])
+                E[:, a, i * sh2.nc + j] = blk.reshape(nimg, -1)
+    pc[:, :, 5] = np.abs(E).reshape(nimg, len(prs), -1).max(axis=2)
+    return pc, E
+
+
 # general-l basis data: {(symbol, basis): [(l, [(exp, coef), ...]), ...]}
 # (standard public STO-3G parameters; same contraction coefficients for
 # all first-row atoms with element-scaled exponents)

@@ -3,7 +3,8 @@ Build and ctypes binding of the native integral cores (PyTorch port of
 libdmet_preview_tpu/ints/native.py): csrc/_gto_core.cpp (get_lib,
 eri_s_shells) and csrc/_sr_core.cpp, the periodic engine's short-range
 lattice sums (get_sr_lib, sr_hermite_sum, sr_cand_sum and the
-erfc_eri_rows entry point that ints.pbc calls directly).
+erfc_eri_rows_batch entry point that ints.pbc calls directly, on
+num_threads() threads).
 
 The O(nao^4) s-shell ERI loop runs in C++, compiled at first use with
 `g++ -O3 -shared -fPIC` into build/native/ beside the package (never into
@@ -30,7 +31,7 @@ from libdmet_preview_tpu_torch.utils import logger as log
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
 BUILD_DIR = _PKG_DIR.parent / "build" / "native"
-GXX_FLAGS = ["-O3", "-shared", "-fPIC", "-x", "c++"]
+GXX_FLAGS = ["-O3", "-shared", "-fPIC", "-pthread", "-x", "c++"]
 
 
 def _src_snapshot(src):
@@ -92,6 +93,12 @@ def get_lib():
     return _LIB
 
 
+def num_threads():
+    """Threads of the short-range core: the CPUs this process may run
+    on."""
+    return len(os.sched_getaffinity(0))
+
+
 _SR_SRC_DATA, _SR_SO = _src_snapshot(_PKG_DIR / "csrc" / "_sr_core.cpp")
 _SR_LIB = None
 _SR_TRIED = False
@@ -119,12 +126,12 @@ def get_sr_lib():
                                    i64, f8, f8]
     lib.sr_hermite_sum.restype = None
     lib.sr_cand_sum.argtypes = [i64, i64, i64, f8, i8, i8, i8, f8, f8,
-                                dbl, dbl, dbl, i64, f8, f8]
+                                dbl, dbl, dbl, i64, i64, f8, f8]
     lib.sr_cand_sum.restype = None
-    lib.erfc_eri_rows.argtypes = [
-        i64, i64, i64, i64, f8, f8, f8, dbl, i64, i8, f8, f8, f8,
-        f8, f8, f8, dbl, dbl, dbl, i64, i64, i64, ctypes.c_void_p]
-    lib.erfc_eri_rows.restype = None
+    lib.erfc_eri_rows_batch.argtypes = [
+        i64, i8, f8, f8, i64, i8, i8, i64, i8, f8, f8, f8, f8, f8,
+        dbl, dbl, i64, i64, i64, i64, ctypes.c_void_p]
+    lib.erfc_eri_rows_batch.restype = None
     _SR_LIB = lib
     return _SR_LIB
 
@@ -154,14 +161,16 @@ def sr_hermite_sum(lsum, PC, wz, kimg, nimg, alpha, kernel):
 
 
 def sr_cand_sum(lsum, P, inv, cand_img, cand_c, ctrs, Zs, rng2, alpha,
-                kernel):
+                kernel, low=False):
     """Fused candidate screen + Hermite kernel sum (sr_cand_sum in
     csrc/_sr_core.cpp): for each candidate (image, center) pair whose image
     this primitive pair keeps (inv[image] >= 0) and whose |P - C|^2 <
     rng2, adds Zs[center] R_tuv(alpha; P - C) to that image's row.  The
     arrays must be C-contiguous float64 / int64.  Returns (S_re, S_im) of
     shape ((lsum+1)^3, nimg_p), or None when the core is unavailable or
-    lsum > 4."""
+    lsum > 4.  low=True fills only the entries t + u + v <= lsum (the
+    rest stay 0), which is all a Hermite -> Cartesian transform of order
+    lsum reads."""
     lib = get_sr_lib()
     if lib is None or lsum > 4:
         return None
@@ -175,7 +184,8 @@ def sr_cand_sum(lsum, P, inv, cand_img, cand_c, ctrs, Zs, rng2, alpha,
     lib.sr_cand_sum(lsum, cand_img.shape[0], nimg_p, P.reshape(-1),
                     inv, cand_img, cand_c, ctrs.reshape(-1), Zs,
                     float(rng2), float(a.real), float(a.imag),
-                    int(kernel), S_re.reshape(-1), S_im.reshape(-1))
+                    int(kernel), int(bool(low)), S_re.reshape(-1),
+                    S_im.reshape(-1))
     return S_re, S_im
 
 

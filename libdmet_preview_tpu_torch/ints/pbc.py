@@ -1,7 +1,7 @@
 """
 Periodic Gaussian integrals on the Born-von-Karman torus (PyTorch port of
-libdmet_preview_tpu/ints/pbc.py: the cell and its integrals; the
-embedding-ERI routines aft / fft / rs are not ported yet).
+libdmet_preview_tpu/ints/pbc.py: the cell, its integrals and the
+embedding-ERI drivers aft / fft / rs).
 
 A k-mesh calculation is formulated on the BvK SUPERCELL torus: periodized
 orbitals, the Ewald-periodized Coulomb kernel
@@ -26,11 +26,13 @@ Where the work runs.  On the cell's device (float64 / complex128): the
 pair Fourier transform ft_aopair (exp(-G^2/4p), the image phases
 exp(-iG.P), the separable Hermite contraction against (-iG)^t, the stripe
 expansion by exp(-iG.T_D)), the nuclear structure factor and long-range
-contraction of intor_nuc, and the weighted G-space Grams of intor_eri,
+contraction of intor_nuc, the weighted G-space Grams of intor_eri,
 intor_eri_rs's long range and eri_trans_full (plain torch.matmul; the Gram
-is Ar^T Ar + Ai^T Ai of the sqrt(w)-scaled parts).  On the host, in NumPy
-and the native core (ints/native.py, csrc/_sr_core.cpp), exactly as in
-the JAX package: the real-space lattice sums (overlap, kinetic, the erfc
+is Ar^T Ar + Ai^T Ai of the sqrt(w)-scaled parts), and the embedding
+drivers (the embedding pair transforms, the pair FFTs, the contraction of
+the short-range rows).  On the host, in NumPy and the native core
+(ints/native.py, csrc/_sr_core.cpp, on every host core), in the JAX
+package's terms: the real-space lattice sums (overlap, kinetic, the erfc
 and GTH short range with its complex-step derivative, the projector
 overlaps, the short-range ERI rows) and the Ewald energy.
 
@@ -39,12 +41,14 @@ The integral methods (intor_*, eri_trans_full*) return float64 tensors on
 evaluation, as ints.gto.Mole does; they return a copy each time.  The
 mesh helpers (Gv, coulG, coulG_rs) return NumPy arrays.  Under
 utils.timer.recording() the stages are timed: "cell 1-body (host)",
-"pair FT (device)", "nuclear LR (device)", "nuclear SR (host)",
-"SR ERI rows (host)", "LR ERI Gram (device)", "eri_trans_full Gram
-(device)" and "Ewald (host)".
+"pair FT (device)", "nuclear LR (device)", "nuclear SR (host)", "GTH
+(host)", "SR ERI rows (host)", "LR ERI Gram (device)", "eri_trans_full
+Gram (device)", "Ewald (host)", "SR emb contraction (device)" and "emb
+ERI Gram (device)".
 """
 
 import itertools as it
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -52,6 +56,7 @@ from scipy.special import erfc
 
 from libdmet_preview_tpu_torch.ints import md
 from libdmet_preview_tpu_torch.ints import native
+from libdmet_preview_tpu_torch.utils.misc import as_f64
 from libdmet_preview_tpu_torch.utils.timer import stage
 
 BOHR_PER_ANGSTROM = 1.0 / 0.52917720859  # PySCF's BOHR constant
@@ -73,21 +78,28 @@ def _rows_per_block(row_bytes):
     return max(1024, _BLOCK_BYTES // max(int(row_bytes), 1))
 
 
-def _wgram(F, w):
-    """Re[(F.conj() * w[:, None]).T @ F] of a (nG, M) complex tensor with
-    non-negative weights w (nG,): Ar^T Ar + Ai^T Ai of the sqrt(w)-scaled
-    real and imaginary parts, in row blocks, on F's device."""
+def _wgram(F, w, F2=None):
+    """Re[(F.conj() * w[:, None]).T @ F2] of (nG, M) / (nG, M2) complex
+    tensors (F2 defaults to F) with non-negative weights w (nG,):
+    Ar^T Br + Ai^T Bi of the sqrt(w)-scaled real and imaginary parts, in
+    row blocks, on F's device."""
     nG, M = F.shape
+    M2 = M if F2 is None else F2.shape[1]
     sw = torch.sqrt(w)
-    out = torch.zeros((M, M), dtype=torch.float64, device=F.device)
-    blk = _rows_per_block(16 * M)
+    out = torch.zeros((M, M2), dtype=torch.float64, device=F.device)
+    blk = _rows_per_block(16 * (M + M2))
     for g0 in range(0, nG, blk):
         Fb = F[g0:g0 + blk]
         s = sw[g0:g0 + blk, None]
         Ar = Fb.real * s
         Ai = Fb.imag * s
-        out += Ar.T @ Ar
-        out += Ai.T @ Ai
+        if F2 is None:
+            Br, Bi = Ar, Ai
+        else:
+            F2b = F2[g0:g0 + blk]
+            Br, Bi = F2b.real * s, F2b.imag * s
+        out += Ar.T @ Br
+        out += Ai.T @ Bi
     return out
 
 
@@ -289,31 +301,35 @@ class PbcCell(object):
     def _fill_lattice(self, block_imgs_fn):
         """Generic lattice-summed 1-body assembly over shell pairs;
         block_imgs_fn(shi, shj, shifts) returns the IMAGE-SUMMED block.
-        With set_translations, only the first block column is computed."""
+        With set_translations, only the first block column is computed.
+        The blocks are computed in a pool of native.num_threads() threads
+        (each block alone, so the result does not depend on the count; the
+        native sums release the interpreter lock)."""
         nao = self.nao
-        if self.ncells_tr:
-            m = self.nao_cell
-            col = np.zeros((nao, m))
-            for i, shi in enumerate(self.shells):
-                i0, i1 = self.shell_slices[i]
-                for j in range(self.nshell_cell):
-                    shj = self.shells[j]
-                    j0, j1 = self.shell_slices[j]
-                    imgs = self._pair_image_list(shi, shj)
-                    col[i0:i1, j0:j1] = block_imgs_fn(shi, shj, imgs)
-            out = self._expand_stripe_col(col)
-            return 0.5 * (out + out.T)
-        out = np.zeros((nao, nao))
-        for i, shi in enumerate(self.shells):
+        stripe = bool(self.ncells_tr)
+        if stripe:
+            pairs = [(i, j) for i in range(len(self.shells))
+                     for j in range(self.nshell_cell)]
+        else:
+            pairs = [(i, j) for i in range(len(self.shells))
+                     for j in range(i + 1)]
+        self._pair_images()
+
+        def block(ij):
+            shi, shj = self.shells[ij[0]], self.shells[ij[1]]
+            return block_imgs_fn(shi, shj, self._pair_image_list(shi, shj))
+
+        with ThreadPoolExecutor(native.num_threads()) as ex:
+            blocks = list(ex.map(block, pairs))
+        out = np.zeros((nao, self.nao_cell if stripe else nao))
+        for (i, j), acc in zip(pairs, blocks):
             i0, i1 = self.shell_slices[i]
-            for j in range(i + 1):
-                shj = self.shells[j]
-                j0, j1 = self.shell_slices[j]
-                imgs = self._pair_image_list(shi, shj)
-                acc = block_imgs_fn(shi, shj, imgs)
-                out[i0:i1, j0:j1] = acc
-                if i != j:
-                    out[j0:j1, i0:i1] = acc.T
+            j0, j1 = self.shell_slices[j]
+            out[i0:i1, j0:j1] = acc
+            if not stripe and i != j:
+                out[j0:j1, i0:i1] = acc.T
+        if stripe:
+            out = self._expand_stripe_col(out)
         # i == j off-diagonal-image asymmetry: symmetrize
         return 0.5 * (out + out.T)
 
@@ -507,6 +523,11 @@ class PbcCell(object):
             V = self._nuc_lr(eta)
         with stage("nuclear SR (host)"):
             V = self._nuc_sr(V, eta)
+        # GTH short range: local remainder and projectors, lattice-summed
+        # (the -Z_ion/r tail is in the Ewald point charges above)
+        if self.pps is not None:
+            with stage("GTH (host)"):
+                V = V + self._pp_sr_matrix()
         return 0.5 * (V + V.T)
 
     def _nuc_lr(self, eta):
@@ -529,8 +550,8 @@ class PbcCell(object):
         return V
 
     def _nuc_sr(self, V, eta):
-        """V + the real-space erfc short range + its G=0 term (+ the GTH
-        short range), on the host, in the JAX package's order."""
+        """V + the real-space erfc short range + its G=0 term, on the
+        host, in the JAX package's order."""
         logt = -np.log(self.precision)
         # SR: real-space erfc attraction (general l, image-batched),
         # images of both the pair and the nuclei
@@ -553,16 +574,12 @@ class PbcCell(object):
                                        [("erfc", eta, 1.0)],
                                        rng_sr, logt * 1.5)
 
+        native.get_sr_lib()
         V = V + self._fill_lattice(sr_block)
         # G=0 term of the SR reciprocal branch (pyscf's charged-background
         # correction): +(pi/(eta Omega)) Z_tot S_IJ
-        V = V + (np.pi / (eta * self.vol)) * self.charges.sum() \
+        return V + (np.pi / (eta * self.vol)) * self.charges.sum() \
             * self._ovlp_np()
-        # GTH short range: local remainder and projectors, lattice-summed
-        # (the -Z_ion/r tail is in the Ewald point charges above)
-        if self.pps is not None:
-            V = V + self._pp_sr_matrix()
-        return V
 
     def _sr_flat_block(self, shi, shj, imgs, Zs, ctrs, kernels, rng,
                        logt):
@@ -616,17 +633,19 @@ class PbcCell(object):
                    if not use_fused or kk[0] == "gauss_pow"]
         shp = (lsum + 1, lsum + 1, lsum + 1)
 
+        # the E rows of every Cartesian pair (i, j), per direction
+        cart = [(a, b) for a in CART[shi.l] for b in CART[shj.l]]
+        rows = [(np.asarray([a[d] for a, _ in cart]),
+                 np.asarray([b[d] for _, b in cart])) for d in range(3)]
+
         def _accum(S, fac, Ex, Ey, Ez):
-            for i, (l1, m1, n1) in enumerate(CART[shi.l]):
-                for j, (l2, m2, n2) in enumerate(CART[shj.l]):
-                    val = 0.0
-                    for t in range(l1 + l2 + 1):
-                        for u in range(m1 + m2 + 1):
-                            for v in range(n1 + n2 + 1):
-                                E3v = (Ex[l1, l2, t] * Ey[m1, m2, u]
-                                       * Ez[n1, n2, v])
-                                val = val + np.dot(E3v, S[t, u, v])
-                    out[i, j] += fac * val
+            # out[i, j] += fac sum_{tuv, img} Ex[t] Ey[u] Ez[v] S[t, u, v]
+            # (E is zero beyond each pair's own t / u / v range)
+            Es = [E[r1, r2, :lsum + 1] for E, (r1, r2)
+                  in zip((Ex, Ey, Ez), rows)]
+            val = np.einsum("ptk, puk, pvk, tuvk -> p", *Es, S,
+                            optimize=True)
+            out[...] += fac * val.reshape(shi.nc, shj.nc)
 
         for p, c12, P, (Ex, Ey, Ez), sel in md._pair_E3_imgs(shi, shj, imgs,
                                                              logt):
@@ -643,10 +662,10 @@ class PbcCell(object):
                         fac = -extra * c12 * (2.0 * np.pi / p)
                         S1 = native.sr_cand_sum(
                             lsum, Pc, inv, cand_img, cand_c, ctrs_c,
-                            Zs_c, rng2, p, 0)[0]
+                            Zs_c, rng2, p, 0, low=True)[0]
                         S2 = native.sr_cand_sum(
                             lsum, Pc, inv, cand_img, cand_c, ctrs_c,
-                            Zs_c, rng2, p * sf, 0)[0]
+                            Zs_c, rng2, p * sf, 0, low=True)[0]
                         S = (S1 - np.sqrt(sf) * S2).reshape(shp + (nimg_p,))
                     elif kind == "gauss":
                         c1, c2, rloc = extra
@@ -657,7 +676,7 @@ class PbcCell(object):
                         gam = p * beta / (p + beta)
                         Sr, Si = native.sr_cand_sum(
                             lsum, Pc, inv, cand_img, cand_c, ctrs_c,
-                            ones_c, rng2, gam, 1)
+                            ones_c, rng2, gam, 1, low=True)
                         Sc = (Sr + 1j * Si) * pref
                         S = (c1 * Sc.real
                              + (c2 * (-(Sc.imag / h)) / (rloc * rloc)
@@ -795,6 +814,7 @@ class PbcCell(object):
                                            kernels, rng, logt)
             return out
 
+        native.get_sr_lib()
         V = self._fill_lattice(loc_block)
 
         # nonlocal: per atom, rows = stacked (channel, i, m) projector
@@ -905,8 +925,7 @@ class PbcCell(object):
         """The short-range rows expanded by translation symmetry to the
         dense (nao,)*4 ERI (host):
         (Ci, Jq | Kr, Ls) = (0i, (J-C)q | (K-C)r, (L-C)s)."""
-        with stage("SR ERI rows (host)"):
-            eri = self._sr_ao_eri_rows(omega, pair_tol=pair_tol)
+        eri = self._sr_ao_eri_rows(omega, pair_tol=pair_tol)
         N = self.ncells_tr or 1
         if N == 1:
             return eri
@@ -985,8 +1004,7 @@ class PbcCell(object):
     def _eri_trans_full_rs(self, omega, gmax_lr, pair_tol):
         N = self.ncells_tr
         m = self.nao_cell
-        with stage("SR ERI rows (host)"):
-            eri0 = self._sr_ao_eri_rows(omega, pair_tol=pair_tol)
+        eri0 = self._sr_ao_eri_rows(omega, pair_tol=pair_tol)
         # (0p, Jq | Kr, Ls) -> eri_F[J, K, L, p, q, r, s]
         out = self._dev(eri0).reshape(m, N, m, N, m, N, m).permute(
             1, 3, 5, 0, 2, 4, 6)
@@ -1003,16 +1021,26 @@ class PbcCell(object):
         return out
 
     def _sr_ao_eri_rows(self, omega, pair_tol=None):
-        """SHORT-RANGE AO ERI first-block rows (host): the torus lattice
-        sum of real-space erfc(w r)/r AO quadruples, bra first index
-        pinned to cell 0: eri0[p, Jq, Kr, Ls] = (0p Jq | erfc | Kr Ls),
-        shape (nao_cell, nao, nao, nao) for stripe cells, (nao,)*4
-        otherwise.  Includes the kernel's G=0 average (pi/w^2); RS callers
-        subtract it.  The native core (erfc_eri_rows) takes max l <= 2
-        and at most 16,384 images; otherwise md.eri_block_erfc_tsum runs
-        per quadruple."""
-        nao = self.nao
+        """SHORT-RANGE AO ERI first-block rows (host), kept on the cell per
+        (omega, pair_tol) (the lattice build and the embedding drivers
+        each ask for their omega again): the torus lattice sum of
+        real-space erfc(w r)/r AO quadruples, bra first index pinned to
+        cell 0: eri0[p, Jq, Kr, Ls] = (0p Jq | erfc | Kr Ls), shape
+        (nao_cell, nao, nao, nao) for stripe cells, (nao,)*4 otherwise.
+        Includes the kernel's G=0 average (pi/w^2); RS callers subtract
+        it.  The native core (erfc_eri_rows_batch, on
+        native.num_threads() threads) takes max l <= 2 and at most 16,384
+        images; otherwise md.eri_block_erfc_tsum runs per quadruple.
+        Callers must not write to the array they get."""
         prec = self.precision if pair_tol is None else pair_tol
+
+        def rows():
+            with stage("SR ERI rows (host)"):
+                return self._sr_rows(omega, prec)
+        return self._memo(("sr_rows", float(omega), float(prec)), rows)
+
+    def _sr_rows(self, omega, prec, nthreads=None):
+        nao = self.nao
         rcut_k = np.sqrt(-np.log(prec)) / omega
         shells = self.shells
         nsh = len(shells)
@@ -1023,101 +1051,425 @@ class PbcCell(object):
         def ext(sh):
             return np.sqrt(-np.log(prec) / sh.exps.min())
 
-        def pairs(row_shells, canonical=False):
-            """Shell-pair/image list; canonical=True keeps one member of
-            each {(k,l,T), (l,k,-T)} orbit (real orbitals: the two give
-            transposed ket blocks, (pq|rs) = (pq|sr)) with dup=True,
-            self pairs (k==l, T==0, symmetric block) dup=False."""
+        def pair_groups(row_shells, canonical=False):
+            """Per shell pair (i, j): its images T and ket-swap flags.
+            canonical=True keeps one member of each {(k,l,T), (l,k,-T)}
+            orbit (real orbitals: the two give transposed ket blocks,
+            (pq|rs) = (pq|sr)) with dup=True, self pairs (k==l, T==0,
+            symmetric block) dup=False; in the JAX package's order."""
             out = []
             for i in row_shells:
-                shi, (i0, i1) = shells[i], self.shell_slices[i]
                 for j in range(nsh):
                     if canonical and j < i:
                         continue
-                    shj, (j0, j1) = shells[j], self.shell_slices[j]
-                    for T in self._pair_image_list(shi, shj):
-                        dup = True
-                        if canonical and j == i:
-                            key = tuple(np.round(T, 8))
-                            mkey = tuple(np.round(-T, 8))
-                            if key < mkey:
-                                continue
-                            if key == mkey:      # T == 0 self pair
-                                dup = False
-                        mid = 0.5 * (shi.center + shj.center + T)
-                        rad = (0.5 * np.linalg.norm(
-                            shi.center - shj.center - T)
-                            + max(ext(shi), ext(shj)))
-                        out.append((i, j, T, i0, i1, j0, j1, mid, rad,
-                                    dup))
+                    Ts = self._pair_image_list(shells[i], shells[j])
+                    dup = np.ones(len(Ts), dtype=bool)
+                    if canonical and j == i:
+                        # keep round(T) >= round(-T) lexicographically
+                        key, mkey = np.round(Ts, 8), np.round(-Ts, 8)
+                        ne = key != mkey
+                        first = np.argmax(ne, axis=1)
+                        rows_ = np.arange(len(Ts))
+                        less = ne.any(axis=1) & (key[rows_, first]
+                                                 < mkey[rows_, first])
+                        dup = ne.any(axis=1)[~less]
+                        Ts = Ts[~less]
+                    if len(Ts):
+                        out.append((i, j, Ts, dup))
             return out
 
-        bras = pairs(range(nsh_bra))
-        kets = pairs(range(nsh), canonical=True)
+        bras = pair_groups(range(nsh_bra))
+        kets = pair_groups(range(nsh), canonical=True)
         Tks = np.ascontiguousarray(self.lattice_images(
             rcut_k + 2.0 * max(ext(sh) for sh in shells)), dtype=float)
         eri0 = np.zeros((m, nao, nao, nao))
         lib = native.get_sr_lib()
         if lib is not None and max(sh.l for sh in shells) <= 2 \
                 and len(Tks) <= 16384:
-            # native path: pack ket pairs once, one C call per bra pair
-            import ctypes
-            nkp = len(kets)
-            kmeta = np.empty((nkp, 8), dtype=np.int64)
-            kgeom = np.empty((nkp, 4))
-            pc_l, E_l = [], []
-            p_off = e_off = 0
-            for idx, (k, l, TL, k0, k1, l0, l1, Qm, Qr,
-                      dup) in enumerate(kets):
-                pc, E = md.pair_prim_dense(shells[k], shells[l], TL)
-                kmeta[idx] = (shells[k].l + shells[l].l, shells[k].nc,
-                              shells[l].nc, p_off, len(pc), e_off,
-                              k0 * nao + l0,
-                              l0 * nao + k0 if dup else -1)
-                kgeom[idx, :3] = Qm
-                kgeom[idx, 3] = Qr
-                pc_l.append(pc)
-                E_l.append(E.ravel())
-                p_off += len(pc)
-                e_off += E.size
-            pc34 = np.ascontiguousarray(np.concatenate(pc_l, axis=0))
-            E34 = np.ascontiguousarray(np.concatenate(E_l))
-            lntol = -np.log(prec)
-            s0, s1, s2 = nao ** 3, nao ** 2, nao
-            Amat = np.ascontiguousarray(self.a, dtype=float)
-            Ainv = np.ascontiguousarray(np.linalg.inv(Amat))
-            cnorm = np.ascontiguousarray(np.linalg.norm(Ainv, axis=0))
-            for (i, j, TJ, i0, i1, j0, j1, Pm, Pr, _dup) in bras:
-                shi, shj = shells[i], shells[j]
-                pc12, E12 = md.pair_prim_dense(shi, shj, TJ)
-                lib.erfc_eri_rows(
-                    shi.l + shj.l, shi.nc, shj.nc, len(pc12),
-                    np.ascontiguousarray(pc12),
-                    np.ascontiguousarray(E12.reshape(len(pc12), -1)),
-                    np.ascontiguousarray(Pm, dtype=float), float(Pr),
-                    nkp, kmeta, kgeom, pc34, E34,
-                    Amat, Ainv, cnorm, float(omega), float(lntol),
-                    float(rcut_k), s0, s1, s2,
-                    ctypes.c_void_p(eri0.ctypes.data
-                                    + 8 * (i0 * s0 + j0 * s1)))
-        else:
-            for (i, j, TJ, i0, i1, j0, j1, Pm, Pr, _dup) in bras:
-                shi, shj = shells[i], shells[j]
-                for (k, l, TL, k0, k1, l0, l1, Qm, Qr, dup) in kets:
+            self._sr_rows_native(lib, bras, kets, omega, prec, eri0,
+                                 nthreads)
+            return eri0
+        for (i, j, TJs, _) in bras:
+            shi, shj = shells[i], shells[j]
+            i0, i1 = self.shell_slices[i]
+            j0, j1 = self.shell_slices[j]
+            for TJ in TJs:
+                Pm = 0.5 * (shi.center + shj.center + TJ)
+                Pr = (0.5 * np.linalg.norm(shi.center - shj.center - TJ)
+                      + max(ext(shi), ext(shj)))
+                for (k, l, TLs, dups) in kets:
                     shk, shl = shells[k], shells[l]
-                    d = Pm - Qm - Tks
-                    keep = np.einsum("ti, ti -> t", d, d) \
-                        < (rcut_k + Pr + Qr) ** 2
-                    if not np.any(keep):
-                        continue
-                    blk = md.eri_block_erfc_tsum(
-                        shi, shj, shk, shl, (TJ, None, TL),
-                        Tks[keep], omega, tol=prec)
-                    eri0[i0:i1, j0:j1, k0:k1, l0:l1] += blk
-                    if dup:   # (pq|rs) = (pq|sr): ket-swap partner
-                        eri0[i0:i1, j0:j1, l0:l1, k0:k1] += \
-                            blk.transpose(0, 1, 3, 2)
+                    k0, k1 = self.shell_slices[k]
+                    l0, l1 = self.shell_slices[l]
+                    for TL, dup in zip(TLs, dups):
+                        Qm = 0.5 * (shk.center + shl.center + TL)
+                        Qr = (0.5 * np.linalg.norm(shk.center - shl.center
+                                                   - TL)
+                              + max(ext(shk), ext(shl)))
+                        d = Pm - Qm - Tks
+                        keep = np.einsum("ti, ti -> t", d, d) \
+                            < (rcut_k + Pr + Qr) ** 2
+                        if not np.any(keep):
+                            continue
+                        blk = md.eri_block_erfc_tsum(
+                            shi, shj, shk, shl, (TJ, None, TL),
+                            Tks[keep], omega, tol=prec)
+                        eri0[i0:i1, j0:j1, k0:k1, l0:l1] += blk
+                        if dup:   # (pq|rs) = (pq|sr): ket-swap partner
+                            eri0[i0:i1, j0:j1, l0:l1, k0:k1] += \
+                                blk.transpose(0, 1, 3, 2)
         return eri0
+
+    def _sr_rows_native(self, lib, bras, kets, omega, prec, eri0,
+                        nthreads):
+        """Pack the bra and ket pairs (every image of a shell pair at once)
+        and run csrc/_sr_core.cpp erfc_eri_rows_batch into eri0.  Kets
+        whose magnitude bound fails for every bra are left out before
+        packing; the core skips the same kets per bra (exact)."""
+        import ctypes
+        shells = self.shells
+        nao = self.nao
+        lntol = -np.log(prec)
+        s0, s1, s2 = nao ** 3, nao ** 2, nao
+        two_pi_2_5 = 2.0 * 17.493418327624862
+
+        def mag(pc):
+            """(max |c| max|E| / p, min p) per pair image."""
+            return ((np.abs(pc[..., 1]) * pc[..., 5] / pc[..., 0]).max(-1),
+                    pc[..., 0].min(-1))
+
+        bmeta, bpc, bE, goff, gcost = [], [], [], [0], []
+        p_off = e_off = 0
+        for (i, j, TJs, _) in bras:
+            pc, E = md.pair_prim_dense_imgs(shells[i], shells[j], TJs)
+            nimg, npr = pc.shape[:2]
+            blk = E[0].size
+            i0, j0 = self.shell_slices[i][0], self.shell_slices[j][0]
+            for t in range(nimg):
+                bmeta.append((shells[i].l + shells[j].l, shells[i].nc,
+                              shells[j].nc, p_off + t * npr, npr,
+                              e_off + t * blk, i0 * s0 + j0 * s1))
+            bpc.append(pc.reshape(-1, 6))
+            bE.append(E.ravel())
+            p_off += nimg * npr
+            e_off += E.size
+            goff.append(goff[-1] + nimg)
+            gcost.append(nimg * E[0].size)
+        bpc = np.ascontiguousarray(np.concatenate(bpc))
+        bmax, pmin = mag(bpc[None])
+        bmax, pmin = float(bmax[0]), float(pmin[0])
+
+        kmeta, kpc, kE = [], [], []
+        p_off = e_off = 0
+        for (k, l, TLs, dups) in kets:
+            pc, E = md.pair_prim_dense_imgs(shells[k], shells[l], TLs)
+            kmax, qmin = mag(pc)
+            with np.errstate(divide="ignore"):
+                live = np.log(two_pi_2_5 * bmax * kmax
+                              / np.sqrt(pmin + qmin)) + 1e-6 + lntol > 0.0
+            if not live.any():
+                continue
+            pc, E, dups = pc[live], E[live], dups[live]
+            nimg, npr = pc.shape[:2]
+            blk = E[0].size
+            k0, l0 = self.shell_slices[k][0], self.shell_slices[l][0]
+            for t in range(nimg):
+                kmeta.append((shells[k].l + shells[l].l, shells[k].nc,
+                              shells[l].nc, p_off + t * npr, npr,
+                              e_off + t * blk, k0 * nao + l0,
+                              l0 * nao + k0 if dups[t] else -1))
+            kpc.append(pc.reshape(-1, 6))
+            kE.append(E.ravel())
+            p_off += nimg * npr
+            e_off += E.size
+        if not kmeta:
+            return
+        Amat = np.ascontiguousarray(self.a, dtype=float)
+        Ainv = np.ascontiguousarray(np.linalg.inv(Amat))
+        lib.erfc_eri_rows_batch(
+            len(bmeta), np.ascontiguousarray(bmeta, dtype=np.int64),
+            bpc, np.ascontiguousarray(np.concatenate(bE)),
+            len(gcost), np.asarray(goff, dtype=np.int64),
+            np.ascontiguousarray(np.argsort(gcost)[::-1], dtype=np.int64),
+            len(kmeta), np.ascontiguousarray(kmeta, dtype=np.int64),
+            np.ascontiguousarray(np.concatenate(kpc)),
+            np.ascontiguousarray(np.concatenate(kE)),
+            Amat, Ainv, np.ascontiguousarray(np.linalg.norm(Ainv, axis=0)),
+            float(omega), float(lntol), s0, s1, s2,
+            native.num_threads() if nthreads is None else int(nthreads),
+            ctypes.c_void_p(eri0.ctypes.data))
+
+    # ------------------------------------------------------------------
+    # embedding-space ERI drivers: the supercell AO ERI is never formed.
+    # Chemist notation, real, float64 tensors (neo,)*4 on the device; the
+    # same symmetrization averages and 1/Omega as the JAX package.
+    # ------------------------------------------------------------------
+
+    def _tr_add(self):
+        """add[R, c] = E with tr_diff[E, c] == R (T_E = T_R + T_c), a
+        long tensor on the device."""
+        def make():
+            N = self.ncells_tr
+            add = np.empty_like(self.tr_diff)
+            add[self.tr_diff, np.arange(N)[None, :]] = np.arange(N)[:, None]
+            return torch.as_tensor(add, device=self.device)
+        return self._memo("tr_add", make)
+
+    def _emb_g(self, C, Gv, w):
+        """The embedding pair transforms g[G] = C^T f(G) C (nG, neo*neo)
+        of a dense cell, built per G block (blocks with w == 0 are
+        skipped, as their Gram term is zero)."""
+        neo = C.shape[1]
+        Cc = C.to(torch.complex128)
+        g = torch.zeros((Gv.shape[0], neo * neo), dtype=torch.complex128,
+                        device=self.device)
+        blk = _rows_per_block(16 * self.nao * self.nao * 2)
+        for g0 in range(0, Gv.shape[0], blk):
+            if not np.any(w[g0:g0 + blk]):
+                continue
+            f = self._ft_aopair_impl(Gv[g0:g0 + blk])
+            g[g0:g0 + blk] = (Cc.T @ f @ Cc).reshape(f.shape[0], -1)
+        return g
+
+    def _emb_g_aft(self, C_emb, Gv, blksize=8192):
+        """g[G, i, j] = (C^T f(G) C)_ij (nG, neo, neo) from the CACHED
+        first-block-column pair FT of a stripe cell:
+          g[G] = sum_D e^{-iG.T_D} Crow_D^T fcol(G) C_D,
+        Crow_D the rows of C permuted by +D.  The permuted row blocks are
+        gathered once as an (N, nao, neo) tensor, and each G block is one
+        batched contraction over D."""
+        C = as_f64(C_emb, self.device)
+        nao, neo = C.shape
+        N = self.ncells_tr
+        m = self.nao_cell
+        fcol = self.ft_aopair(Gv, expand=False)     # (nG, nao, m)
+        G = self._dev(Gv)
+        ang = -(G @ self._dev(self.t_vecs).T)
+        phases = _expi(torch.ones_like(ang), ang)    # (nG, N)
+        Cb = C.reshape(N, m, neo).to(torch.complex128)
+        Crow = Cb[self._tr_add().T].reshape(N, nao, neo)   # [D] = Cb[add[:, D]]
+        nG = Gv.shape[0]
+        g = torch.empty((nG, neo, neo), dtype=torch.complex128,
+                        device=self.device)
+        blk = min(blksize, _rows_per_block(16 * N * neo * (m + neo)))
+        for g0 in range(0, nG, blk):
+            sl = slice(g0, g0 + blk)
+            # t1[D, g, i, t] = sum_p Crow[D, p, i] fcol[g, p, t]
+            t1 = torch.einsum("Dpi, gpt -> Dgit", Crow, fcol[sl])
+            t2 = t1 @ Cb[:, None]                    # (N, nb, neo, neo)
+            g[sl] = torch.einsum("gD, Dgij -> gij", phases[sl], t2)
+        return g
+
+    def get_emb_eri_aft(self, C_emb, blksize=8192):
+        """Embedding-space ERI directly from the AFT factors, G-block
+        streamed:
+          eri_emb[ijkl] = (1/Omega) sum_G w(G) g*[G,ij] g[G,kl],
+          g[G] = C^T f(G) C.
+        C_emb: (nao, neo) AO -> embedding coefficients."""
+        C = as_f64(C_emb, self.device)
+        neo = C.shape[1]
+        Gv, w = self.coulG()
+        if self.ncells_tr:
+            g = self._emb_g_aft(C, Gv, blksize).reshape(-1, neo * neo)
+        else:
+            g = self._emb_g(C, Gv, w)
+        with stage("emb ERI Gram (device)", self.device):
+            eri = _wgram(g, self._dev(w))
+        return _symm8(eri.reshape((neo,) * 4) / self.vol)
+
+    def get_emb_eri_aft_cross(self, C_a, C_b, blksize=8192):
+        """Cross-spin embedding ERI (ij_a | kl_b) from the AFT factors
+        (stripe cells): (1/Omega) sum_G w g_a*[G,ij] g_b[G,kl]."""
+        if not self.ncells_tr:
+            raise ValueError("get_emb_eri_aft_cross: stripe cells only")
+        Gv, w = self.coulG()
+        C_a, C_b = as_f64(C_a, self.device), as_f64(C_b, self.device)
+        na, nb = C_a.shape[1], C_b.shape[1]
+        ga = self._emb_g_aft(C_a, Gv, blksize).reshape(-1, na * na)
+        gb = self._emb_g_aft(C_b, Gv, blksize).reshape(-1, nb * nb)
+        eri = (_wgram(ga, self._dev(w), gb) / self.vol).reshape(
+            na, na, nb, nb)
+        eri = 0.5 * (eri + eri.permute(1, 0, 2, 3))
+        return 0.5 * (eri + eri.permute(0, 1, 3, 2))
+
+    # FFT-DF: AO products on the uniform cell grid, FFT to rho_ij(G)
+
+    def grid_coords(self, mesh=None):
+        """Uniform real-space grid over the cell (fractional fftfreq
+        layout matching Gv ordering): (npts, 3) bohr, row-major."""
+        mesh = self.mesh if mesh is None else tuple(mesh)
+        fracs = [np.arange(n) / float(n) for n in mesh]
+        ns = np.stack(np.meshgrid(*fracs, indexing="ij"), axis=-1)
+        return ns.reshape(-1, 3) @ self.a
+
+    def eval_ao_pbc(self, coords, rcut=None):
+        """Periodic AO values phi_I(r) = sum_T chi_I(r - T) on arbitrary
+        points (general l, image sum bounded by the cell rcut), summed on
+        the host by utils.cubegen.eval_ao; a float64 tensor on the
+        device."""
+        from libdmet_preview_tpu_torch.utils.cubegen import eval_ao
+        coords = np.asarray(coords, float)
+        out = np.zeros((len(coords), self.nao))
+        for T in self.lattice_images(rcut):
+            out += eval_ao(self.mole, coords - T)
+        return self._dev(out)
+
+    def _grid_ao(self, mesh):
+        """eval_ao_pbc on grid_coords(mesh), kept on the cell per mesh."""
+        return self._memo(("grid_ao", tuple(mesh)), lambda: self.eval_ao_pbc(
+            self.grid_coords(mesh)))
+
+    def _fft_mesh(self, mesh):
+        """(npts, dV, w) of a uniform grid: the Coulomb weights 4 pi / G^2
+        (0 at G = 0) on the device."""
+        npts = int(np.prod(mesh))
+        Gv = _mesh_vectors(mesh, self.b)
+        G2 = np.einsum("gi, gi -> g", Gv, Gv)
+        w = np.where(G2 > 1e-12, 4.0 * np.pi / np.maximum(G2, 1e-12), 0.0)
+        return npts, self.vol / npts, self._dev(w)
+
+    def _pair_fft(self, mo_a, mo_b, mesh, dV):
+        """rho_ij(G) = FFT[mo_a_i mo_b_j](G) dV, (npts, na * nb)."""
+        npts, na = mo_a.shape
+        nb = mo_b.shape[1]
+        pair = (mo_a[:, :, None] * mo_b[:, None, :]).reshape(
+            tuple(mesh) + (na * nb,))
+        return (torch.fft.fftn(pair, dim=(0, 1, 2)) * dV).reshape(
+            npts, na * nb)
+
+    def get_emb_eri_fft(self, C_emb, mesh=None, max_memory_mb=2048):
+        """Embedding-space ERI via FFT density fitting: AO products
+        sampled on the uniform cell grid, FFTed to rho_ij(G), then
+        (ij|kl) = (1/Omega) sum_G w(G) rho_ij(G)^* rho_kl(G).  Same
+        contract as get_emb_eri_aft; accuracy is set by the mesh
+        resolving the orbital-PAIR spectrum (default: the cell mesh).
+        The pair FFTs run in column blocks bounded by max_memory_mb."""
+        mesh = self.mesh if mesh is None else tuple(mesh)
+        C = as_f64(C_emb, self.device)
+        neo = C.shape[1]
+        npts, dV, w = self._fft_mesh(mesh)
+        mo = self._grid_ao(mesh) @ C                        # (npts, neo)
+        blk = max(1, int(max_memory_mb * 1e6 / (16 * npts * neo)))
+        rho = torch.empty((npts, neo, neo), dtype=torch.complex128,
+                          device=self.device)
+        for j0 in range(0, neo, blk):
+            j1 = min(neo, j0 + blk)
+            rho[:, :, j0:j1] = self._pair_fft(mo, mo[:, j0:j1], mesh,
+                                              dV).reshape(npts, neo, -1)
+        with stage("emb ERI Gram (device)", self.device):
+            eri = _wgram(rho.reshape(npts, neo * neo), w)
+        return _symm8(eri.reshape((neo,) * 4) / self.vol)
+
+    def get_emb_eri_fft_cross(self, C_a, C_b, mesh=None):
+        """Cross-spin FFT-DF embedding ERI (ij_a | kl_b): the two pair
+        densities share one grid; (1/Omega) sum_G w rho_a^* rho_b."""
+        mesh = self.mesh if mesh is None else tuple(mesh)
+        C_a, C_b = as_f64(C_a, self.device), as_f64(C_b, self.device)
+        na, nb = C_a.shape[1], C_b.shape[1]
+        npts, dV, w = self._fft_mesh(mesh)
+        ao = self._grid_ao(mesh)
+        ma, mb = ao @ C_a, ao @ C_b
+        ra = self._pair_fft(ma, ma, mesh, dV)
+        rb = self._pair_fft(mb, mb, mesh, dV)
+        eri = (_wgram(ra, w, rb) / self.vol).reshape(na, na, nb, nb)
+        eri = 0.5 * (eri + eri.permute(1, 0, 2, 3))
+        return 0.5 * (eri + eri.permute(0, 1, 3, 2))
+
+    # range separation: real-space erfc short range + G-space erf long
+    # range on the coarse damped mesh
+
+    def _sr_rows_dev(self, omega, pair_tol):
+        """_sr_ao_eri_rows on the device, moved there once per
+        (omega, pair_tol)."""
+        prec = self.precision if pair_tol is None else pair_tol
+        return self._memo(("sr_rows_dev", float(omega), float(prec)),
+                          lambda: self._dev(self._sr_ao_eri_rows(
+                              omega, pair_tol=pair_tol)))
+
+    def _sr_emb_eri(self, C_emb, omega, pair_tol=None, C_ket=None):
+        """Short-range embedding ERI: the SR rows expanded by translation
+        symmetry into the embedding contraction, on the device as
+        successive GEMMs per bra cell (contract L, then K, then J, then
+        the bra)."""
+        C = as_f64(C_emb, self.device)
+        Ck = C if C_ket is None else as_f64(C_ket, self.device)
+        nao, neo = C.shape
+        nk = Ck.shape[1]
+        e0 = self._sr_rows_dev(omega, pair_tol)
+        N = self.ncells_tr or 1
+        m = self.nao_cell if N > 1 else nao
+        if N > 1:
+            add = self._tr_add()
+            Cb, Ckb = C.reshape(N, m, neo), Ck.reshape(N, m, nk)
+        else:
+            add = torch.zeros((1, 1), dtype=torch.long, device=self.device)
+            Cb, Ckb = C[None], Ck[None]
+        out = torch.zeros((neo, neo, nk, nk), dtype=torch.float64,
+                          device=self.device)
+        with stage("SR emb contraction (device)", self.device):
+            for c in range(N):
+                Cp = Cb[add[:, c]].reshape(nao, neo)
+                Cq = Ckb[add[:, c]].reshape(nao, nk)
+                t = (e0.reshape(-1, nao) @ Cq).reshape(m, nao, nao, nk)
+                t = torch.einsum("pJKl, Kk -> pJkl", t, Cq)
+                t = torch.einsum("pJkl, Jj -> pjkl", t, Cp)
+                out += torch.einsum("pi, pjkl -> ijkl", Cb[c], t)
+        return out
+
+    def _lr_emb_gram(self, C_a, C_b, Gv, w):
+        """(1/Omega) Re sum_G w g_a*[G] g_b[G], (na*na, nb*nb), of the
+        embedding pair transforms on the mesh Gv."""
+        na, nb = C_a.shape[1], C_b.shape[1]
+        if self.ncells_tr:
+            ga = self._emb_g_aft(C_a, Gv).reshape(-1, na * na)
+            gb = ga if C_b is C_a else \
+                self._emb_g_aft(C_b, Gv).reshape(-1, nb * nb)
+        else:
+            ga = self._emb_g(C_a, Gv, w)
+            gb = ga if C_b is C_a else self._emb_g(C_b, Gv, w)
+        with stage("emb ERI Gram (device)", self.device):
+            return _wgram(ga, self._dev(w), None if gb is ga else gb) \
+                / self.vol
+
+    def get_emb_eri_rs(self, C_emb, omega=0.5, gmax_lr=None,
+                       pair_tol=None):
+        """Embedding-space ERI by RANGE SEPARATION:
+
+            eri = SR(erfc, real space) + LR(erf, coarse G mesh)
+                  - (pi/(w^2 Omega)) S_emb x S_emb   [G=0 of the SR
+                    kernel, removed to match the G=0-dropped AFT/FFT
+                    convention]
+
+        Same contract as get_emb_eri_aft; == get_emb_eri_aft to the AFT
+        mesh accuracy for any omega.  The SR rows are made once per
+        (omega, pair_tol) and kept on the cell."""
+        C = as_f64(C_emb, self.device)
+        neo = C.shape[1]
+        eri = self._sr_emb_eri(C, omega, pair_tol=pair_tol)
+        Gv, w = self.coulG_rs(omega, gmax=gmax_lr)
+        eri += self._lr_emb_gram(C, C, Gv, w).reshape((neo,) * 4)
+        S_emb = C.T @ self.intor_ovlp() @ C
+        eri -= (np.pi / (omega ** 2 * self.vol)) \
+            * torch.einsum("ij, kl -> ijkl", S_emb, S_emb)
+        return _symm8(eri)
+
+    def get_emb_eri_rs_cross(self, C_a, C_b, omega=0.5, gmax_lr=None,
+                             pair_tol=None):
+        """Cross-spin range-separated embedding ERI (ij_a | kl_b); same
+        split as get_emb_eri_rs."""
+        if not self.ncells_tr:
+            raise ValueError("get_emb_eri_rs_cross: stripe cells only")
+        C_a, C_b = as_f64(C_a, self.device), as_f64(C_b, self.device)
+        na, nb = C_a.shape[1], C_b.shape[1]
+        eri = self._sr_emb_eri(C_a, omega, pair_tol=pair_tol, C_ket=C_b)
+        Gv, w = self.coulG_rs(omega, gmax=gmax_lr)
+        eri += self._lr_emb_gram(C_a, C_b, Gv, w).reshape(na, na, nb, nb)
+        S = self.intor_ovlp()
+        Sa, Sb = C_a.T @ S @ C_a, C_b.T @ S @ C_b
+        eri -= (np.pi / (omega ** 2 * self.vol)) \
+            * torch.einsum("ij, kl -> ijkl", Sa, Sb)
+        eri = 0.5 * (eri + eri.permute(1, 0, 2, 3))
+        return 0.5 * (eri + eri.permute(0, 1, 3, 2))
 
     # ------------------------------------------------------------------
     # Ewald nuclear energy (with neutralizing background), host

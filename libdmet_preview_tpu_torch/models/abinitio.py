@@ -48,28 +48,36 @@ class AbInitioHam(object):
     """Duck-typed Ham object for LatticeModel.set_Ham_abinitio.
 
     H1_R / fock_R: ((spin,) ncells, nlo, nlo) LO-basis R stripes;
-    chol_L: (naux, nsites, nsites) Cholesky/DF factors of the supercell LO
-    ERI (H2 format 'cholesky'; set_Ham_abinitio copies them to the lattice's
-    device and leaves this object as it was), or None for a lattice that
-    only runs the non-interacting bath; eri_imp: the unit-cell LO ERI
-    ((n,)*4, or the (aa, bb, ab) blocks of a spin-dependent LO basis); H0:
-    the constant energy per cell.  The JAX package's 'aft' format
-    (embedding ERIs streamed from a cell's pair Fourier transform) is not
-    ported."""
+    eri_imp: the unit-cell LO ERI ((n,)*4, or the (aa, bb, ab) blocks of a
+    spin-dependent LO basis); H0: the constant energy per cell.  H2
+    representations:
+      'cholesky' -- chol_L (naux, nsites, nsites) Cholesky/DF factors of
+                    the supercell LO ERI (set_Ham_abinitio copies them to
+                    the lattice's device and leaves this object as it
+                    was), or None for a lattice that only runs the
+                    non-interacting bath;
+      'aft'      -- no two-body object: the embedding ERIs are streamed
+                    from the periodic cell aft_cell (ints.pbc.PbcCell)
+                    with the AO -> EO coefficients C_ao_lo @ basis, by
+                    the driver df_mode names: 'aft' (analytic pair FT),
+                    'fft' (FFT density fitting) or 'rs' (range
+                    separation).  Chosen when chol_L is None and aft_cell
+                    is given."""
 
-    H2_format = "cholesky"
-
-    def __init__(self, H1_R, fock_R, chol_L, eri_imp, H0):
-        if chol_L is None and eri_imp is None:
-            raise NotImplementedError(
-                "AbInitioHam: the 'aft' format (no Cholesky factors) is "
-                "not ported yet: its transforms live in the integral "
-                "engine (Slice 7)")
+    def __init__(self, H1_R, fock_R, chol_L, eri_imp, H0, aft_cell=None,
+                 C_ao_lo=None, df_mode="aft"):
+        if df_mode not in ("aft", "fft", "rs"):
+            raise ValueError("unknown df_mode %s" % df_mode)
+        self.df_mode = df_mode
         self.H1_R = H1_R
         self.fock_R = fock_R
         self.chol_L = chol_L
         self.eri_imp = eri_imp
         self.H0 = H0
+        self.aft_cell = aft_cell
+        self.C_ao_lo = C_ao_lo
+        self.H2_format = "aft" if (chol_L is None
+                                   and aft_cell is not None) else "cholesky"
         self.ImpJK = None
 
     def getH1(self):
@@ -502,6 +510,70 @@ def update_ham_dense(Lat, meta, rdm1_lo_R):
     Lat.fock_lo_R = fock_R
 
 
+def diamond_cell(kmesh=(1, 1, 2), a_ang=3.567, basis="gth-szv",
+                 pseudo="gth-pade", gmax=None, precision=1e-12,
+                 device=torch.device("cuda")):
+    """The BvK supercell of diamond (the north-star solid): the fcc
+    primitive cell (2 C at 0 and a/4 (1, 1, 1), lattice constant a_ang
+    Angstrom) tiled on a kmesh of cells along its primitive vectors,
+    cell-major with the first axis slowest, GTH-SZV + GTH-PADE by default
+    (8 orbitals per cell).  kmesh (1, 1, nk) is the nk-cell chain along
+    the third primitive vector.  A ints.pbc.PbcCell with its translations
+    set."""
+    import itertools as it
+    from libdmet_preview_tpu_torch.ints.pbc import PbcCell, BOHR_PER_ANGSTROM
+    kmesh = tuple(int(x) for x in kmesh)
+    a0 = a_ang * BOHR_PER_ANGSTROM
+    P = 0.5 * a0 * np.asarray([[0.0, 1.0, 1.0],
+                               [1.0, 0.0, 1.0],
+                               [1.0, 1.0, 0.0]])
+    basis_cell = [np.zeros(3), 0.25 * a0 * np.ones(3)]
+    t_vecs, atoms = [], []
+    for cx, cy, cz in it.product(*[range(n) for n in kmesh]):
+        T = cx * P[0] + cy * P[1] + cz * P[2]
+        t_vecs.append(T)
+        for pos in basis_cell:
+            atoms.append(("C", pos + T))
+    a_sc = np.asarray([kmesh[0] * P[0], kmesh[1] * P[1], kmesh[2] * P[2]])
+    cell = PbcCell(atoms, a_sc, basis=basis, unit="B", pseudo=pseudo,
+                   gmax=gmax, precision=precision, device=device)
+    return cell.set_translations(int(np.prod(kmesh)), np.asarray(t_vecs))
+
+
+def make_diamond_lattice(nk=2, a_ang=3.567, basis="gth-szv",
+                         pseudo="gth-pade", gmax=None, chol_tol=1e-8,
+                         precision=1e-12, device=torch.device("cuda")):
+    """Ab initio DMET lattice for diamond on the BvK torus of nk cells
+    along the third primitive vector (diamond_cell((1, 1, nk))): the
+    cell's integrals (S, hcore, the range-separated ERI, the Ewald
+    energy), supercell RHF, Lowdin LOs (SZV is minimal: all valence), the
+    LO ERI by four GEMMs, Cholesky factors of it, H0 = the Ewald ion
+    energy per cell.  Returns (Lat, meta)."""
+    from libdmet_preview_tpu_torch.models.lattice import ChainLattice
+    from libdmet_preview_tpu_torch.ops.eri_transform import cholesky_eri
+    cell = diamond_cell((1, 1, nk), a_ang, basis, pseudo, gmax, precision,
+                        device)
+    nlo = cell.nao // nk
+    ints = cell_engine_ints(cell, minimal_ref=None)
+    _, E_hf, dm = _rhf_ao(ints, device, tol=1e-11, MaxIter=300)
+    S = as_f64(ints.S, device)
+    C = lowdin(S)
+    h_lo, eri_lo, rdm1_lo, fock_lo = _lo_operators(ints, C, dm, device)
+    h_R, fock_R, rdm1_R = [to_host(_stripe_symm(M, nk, nlo))
+                           for M in (h_lo, fock_lo, rdm1_lo)]
+    chol_L = cholesky_eri(eri_lo, tol=chol_tol)
+    eri_imp = eri_lo[:nlo, :nlo, :nlo, :nlo].clone()
+
+    Lat = ChainLattice(nk * nlo, nlo)
+    Ham = AbInitioHam(h_R, fock_R, chol_L, eri_imp, ints.e_nuc / nk)
+    Lat.set_Ham_abinitio(Ham, rdm1=rdm1_R[None], device=device)
+    meta = {"cell": cell, "E_hf": E_hf, "E_hf_elec": E_hf - ints.e_nuc,
+            "e_nuc": ints.e_nuc, "C_ao_lo": C, "eri_lo": eri_lo,
+            "h_lo": h_lo, "fock_lo": fock_lo, "rdm1_lo": rdm1_lo,
+            "nlo": nlo, "S": S}
+    return Lat, meta
+
+
 # ----------------------------------------------------------------------
 # 3D k-mesh machinery: translation-ERI JK, k-space SCF (the scaling path
 # of the north-star diamond 3x3x3 workload)
@@ -679,6 +751,102 @@ def lowdin_k(S_st, kmesh):
     w = w.to(v.dtype)
     return (v / torch.sqrt(w)[:, None, :]) @ _h(v), \
         (v * torch.sqrt(w)[:, None, :]) @ _h(v)
+
+
+def make_diamond_lattice3(kmesh=(3, 3, 3), a_ang=3.567, basis="gth-szv",
+                          pseudo="gth-pade", gmax=None, precision=1e-10,
+                          scf_tol=1e-11, cache_file=None,
+                          device=torch.device("cuda")):
+    """Diamond on a full 3D k-mesh (diamond_cell(kmesh)), never forming an
+    O(nao_sc^4) object: stripe 1-body integrals -> the translation-'full'
+    ERI by range separation (eri_trans_full_rs) -> k-space HF
+    (kscf_stripe_hf) -> per-k Lowdin LOs (lowdin_k) -> embedding ERIs
+    streamed by the range-separated driver (H2 format 'aft', df_mode
+    'rs'; the impurity ERI eri_imp from get_emb_eri_rs).
+
+    cache_file: an .npz path, or a directory for a name keyed by the
+    arguments; when it exists the stripe integrals, eriF, e_nuc and the
+    pair-FT column are read from it (the JAX package's keys), else they
+    are written there.  Returns (Lat, meta)."""
+    import os
+    from libdmet_preview_tpu_torch.models.lattice import MeshLattice
+    kmesh = tuple(int(x) for x in kmesh)
+    cell = diamond_cell(kmesh, a_ang, basis, pseudo, gmax, precision,
+                        device)
+    N = cell.ncells_tr
+    nlo = cell.nao // N
+    key = "diamond3_rs1_%s_%s_%s_%s_%.0e" % ("x".join(map(str, kmesh)),
+                                             a_ang, basis, pseudo,
+                                             precision)
+    cfile = None
+    if cache_file is not None:
+        cfile = cache_file if cache_file.endswith(".npz") \
+            else os.path.join(cache_file, key + ".npz")
+    if cfile is not None and os.path.exists(cfile):
+        log.result("diamond3 %s: loading cached integrals %s", kmesh, cfile)
+        dat = np.load(cfile)
+        h_st, S_st, eriF, e_nuc = (dat["h_st"], dat["S_st"], dat["eriF"],
+                                   float(dat["e_nuc"]))
+        # pre-seed the pair-FT column cache
+        cell._ft_cache = (dat["Gv"], torch.complex(
+            as_f64(dat["fcol_re"], device), as_f64(dat["fcol_im"], device)),
+            False)
+    else:
+        h_st = _stripe_symm_tr(cell.intor_hcore(), cell.tr_diff, nlo)
+        S_st = _stripe_symm_tr(cell.intor_ovlp(), cell.tr_diff, nlo)
+        eriF = cell.eri_trans_full_rs()
+        e_nuc = cell.energy_nuc()
+        if cfile is not None:
+            os.makedirs(os.path.dirname(cfile) or ".", exist_ok=True)
+            Gv_c, fcol_c, _ = cell._ft_cache
+            fcol_c = to_host(fcol_c)
+            tmp = cfile + ".tmp.npz"
+            np.savez(tmp, h_st=to_host(h_st), S_st=to_host(S_st),
+                     eriF=to_host(eriF), e_nuc=e_nuc, Gv=Gv_c,
+                     fcol_re=fcol_c.real, fcol_im=fcol_c.imag)
+            os.replace(tmp, cfile)
+    info = {}
+    from libdmet_preview_tpu_torch.utils.timer import stage
+    with stage("k-HF", device):
+        E_elec, rho_st, fock_st = kscf_stripe_hf(
+            h_st, S_st, eriF, cell.tr_diff, kmesh, cell.nelectron,
+            tol=scf_tol, device=device, info=info)
+    E_hf = E_elec + e_nuc
+    log.result("diamond3: k-HF done E/cell = %.10f", E_hf / N)
+
+    with stage("Lowdin", device):
+        R2k, k2R = _fft_pair(kmesh, nlo)
+        S_st = as_f64(S_st, device)
+        h_st = as_f64(h_st, device)
+        C_k, Sh_k = lowdin_k(S_st, kmesh)
+        h_lo_R = k2R(_h(C_k) @ R2k(h_st) @ C_k)
+        f_lo_R = k2R(_h(C_k) @ R2k(fock_st) @ C_k)
+        r_lo_R = k2R(_h(Sh_k) @ R2k(rho_st) @ Sh_k)
+        for name, arr in (("h", h_lo_R), ("fock", f_lo_R),
+                          ("rdm1", r_lo_R)):
+            im = float(torch.abs(arr.imag).max())
+            log.eassert(im < 1e-8, "LO %s stripe imaginary %.2e", name, im)
+        h_lo_R, f_lo_R, r_lo_R = (to_host(h_lo_R.real), to_host(f_lo_R.real),
+                                  to_host(r_lo_R.real))
+        # supercell AO -> LO matrix (columns cell-major) for the drivers
+        C_R = k2R(C_k)
+        log.eassert(float(torch.abs(C_R.imag).max()) < 1e-8,
+                    "C_ao_lo stripes imaginary")
+        C_full = _expand_stripe_tr(C_R.real.contiguous(), cell.tr_diff)
+    eri_imp = cell.get_emb_eri_rs(C_full[:, :nlo])
+
+    Lat = MeshLattice(kmesh, nlo)
+    Ham = AbInitioHam(h_lo_R, f_lo_R, None, eri_imp, e_nuc / N,
+                      aft_cell=cell, C_ao_lo=C_full, df_mode="rs")
+    Lat.set_Ham_abinitio(Ham, rdm1=r_lo_R[None], device=device)
+    Lat.set_val_virt_core(nlo, 0, 0)
+    W, Y = info["jk_tables"]
+    meta = {"cell": cell, "E_hf": E_hf, "E_hf_elec": E_elec,
+            "e_nuc": e_nuc, "C_ao_lo": C_full, "nlo": nlo,
+            "h_lo_R": h_lo_R, "fock_lo_R": f_lo_R, "rdm1_lo_R": r_lo_R,
+            "S_st": S_st, "C_k": C_k, "h_st": h_st, "W": W, "Y": Y,
+            "kmesh": kmesh, "tr_diff": cell.tr_diff}
+    return Lat, meta
 
 
 def update_ham_eriF(Lat, meta, rdm1_lo_R):

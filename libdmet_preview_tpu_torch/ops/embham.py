@@ -420,8 +420,10 @@ def _emb_H2(lattice, basis, vcor, int_bath=True, **kwargs):
     neo = basis.shape[-1]
     npair = spin * (spin + 1) // 2
     dev = basis.device
-    if lattice.H2_format == "cholesky":
+    if lattice.H2_format in ("cholesky", "aft"):
         if int_bath:
+            if lattice.H2_format == "aft":
+                return _emb_H2_aft(lattice.Ham, basis)
             # ab initio path: factorized ERI transform on the factors'
             # device
             return get_emb_eri_chol(lattice.getH2(), basis)
@@ -447,13 +449,31 @@ def _emb_H2(lattice, basis, vcor, int_bath=True, **kwargs):
         if int_bath:
             return transform_eri_spin_local(basis, LatH2)
         unit = LatH2[:npair]
-    elif lattice.H2_format == "aft":
-        raise NotImplementedError(
-            "embedding H2: the 'aft' format is not ported yet: its "
-            "transforms live in the integral engine (Slice 7)")
     else:
         raise ValueError("unknown H2 format %s" % lattice.H2_format)
     return unit2emb(unit, neo)
+
+
+def _emb_H2_aft(Ham, basis):
+    """The 'aft' interacting-bath H2: one driver call per spin on the
+    embedding coefficients C_ao_lo @ B_s (the cell's df_mode driver:
+    get_emb_eri_aft / _fft / _rs), plus its cross form for ab.  A float64
+    tensor (npair, neo, neo, neo, neo) on the cell's device; no supercell
+    two-body object is formed."""
+    cell = Ham.aft_cell
+    spin, neo = basis.shape[0], basis.shape[-1]
+    drv = {"aft": cell.get_emb_eri_aft, "fft": cell.get_emb_eri_fft,
+           "rs": cell.get_emb_eri_rs}[Ham.df_mode]
+    drv_x = {"aft": cell.get_emb_eri_aft_cross,
+             "fft": cell.get_emb_eri_fft_cross,
+             "rs": cell.get_emb_eri_rs_cross}[Ham.df_mode]
+    C = as_f64(Ham.C_ao_lo, cell.device)
+    Cs = [C @ as_f64(basis[s], cell.device).reshape(-1, neo)
+          for s in range(spin)]
+    out = [drv(c) for c in Cs]
+    if spin == 2:
+        out.append(drv_x(Cs[0], Cs[1]))
+    return torch.stack(out)
 
 
 def _emb_H1(lattice, basis, vcor, H2_emb, int_bath=True, add_vcor=False,

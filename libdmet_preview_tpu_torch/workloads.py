@@ -1099,3 +1099,275 @@ def gth_rhf(atoms, basis_data, nelec):
             break
         e_old = E
     return E, S
+
+
+# ----------------------------------------------------------------------
+# diamond, the north-star solid (BASELINE.json configs[3]: GTH-SZV +
+# GTH-PADE, 8 orbitals per cell): tests/test_diamond.py's nk-cell chain on
+# the Cholesky format (make_diamond_lattice) and tests/test_diamond333.py's
+# 3D k-mesh on the 'aft' format with the range-separated driver
+# (make_diamond_lattice3)
+# ----------------------------------------------------------------------
+
+# tests/test_diamond333.py:13-19 (JAX package, CPU): (value, bound)
+DIAMOND333_ANCHORS = {"E_hf": (-10.0930031640, 1e-6),
+                      "one-shot": (-10.2082668828, 1e-5),
+                      "loop": (-10.2122587074, 5e-4)}
+# tests/test_diamond333.py:39-93: CCSD solver, FitVcor(MaxIter1=300,
+# MaxIter2=0), DIIS from iteration 2, stop at dE < 1e-5 and dV < 5e-4
+DIAMOND_PROTOCOL = {"max_iter": 8, "diis_from": 2, "diis_space": 8,
+                    "fit_iter": 300, "e_tol": 1e-5, "v_tol": 5e-4,
+                    "cc_tol": 1e-8}
+# the factories' arguments of the CPU tests: the cheapest that still run
+# every step (the precision sets the image sums and the meshes)
+DIAMOND_TIER1 = {"chain": {"nk": 2, "precision": 1e-4},
+                 "mesh": {"kmesh": (1, 1, 2), "precision": 1e-4}}
+# the JAX package's values (scripts/diamond_reference_jax.py): per cell
+# the supercell RHF, the lattice mean field, the IB-HF identity and the
+# one-shot DMET(CCSD) energies, the one-shot impurity electron count;
+# "loop" the first iterations of DIAMOND_PROTOCOL
+DIAMOND_JAX = {
+    "tier1_chain": {"E_hf": -8.649672094899946, "E_mf": -8.649672096666809,
+                    "nelec_emb": 10, "E_ibhf": -8.649672126687545,
+                    "E_cc": -8.79340763794487, "n_cc": 1.0002551523268188},
+    "tier1_mesh": {"E_hf": -8.649672094899952, "E_mf": -8.64967209490424,
+                   "nelec_emb": 10, "E_ibhf": -8.649672094916717,
+                   "E_cc": -8.787734815046749, "n_cc": 1.0002437499910162,
+                   "loop": [-8.787734815046749, -8.790400954077548,
+                            -8.790466656527492, -8.790466656527492],
+                   "loop_n": 1.0000627024521584, "loop_converged": True},
+    "chain_nk2": {"E_hf": -8.652102756934324, "E_mf": -8.65210276281371,
+                  "nelec_emb": 10, "E_ibhf": -8.652102761183736,
+                  "E_cc": -8.796746550523967, "n_cc": 1.0003158715599585},
+    "mesh221_hf": {"E_hf": -9.266291679278272},
+}
+# make_diamond_lattice3 at precision 1e-12 on the card (chip_smoke.py
+# phase 15c; NVIDIA H100 80GB HBM3, 700 W): E_hf and the one-shot CCSD per
+# cell, the converged loop.  3 x 3 x 3: E_hf and the one-shot lie 2.96e-4
+# and 7.53e-4 below DIAMOND333_ANCHORS, which were recorded before the JAX
+# package switched its builders to the range-separated ERIs; the loop lies
+# 4.4e-4 below its anchor (bound 5e-4)
+DIAMOND_RECORDED = {
+    (2, 2, 2): {"E_hf": -9.5705123235, "E_cc": -9.6851751066,
+                "loop": -9.6881993002},
+    (3, 3, 3): {"E_hf": -10.0932991696, "E_cc": -10.2090201079,
+                "loop": -10.2126999208},
+}
+DIAMOND_E_HF_TOL = 1e-10     # E_hf against DIAMOND_JAX (CPU tests)
+DIAMOND_SCF_TOL = 5e-8       # what follows the SCF density (both SCFs stop
+                             # at ||[F, D]|| < 1e-6)
+
+
+def diamond_lattice(kind, device, **kwargs):
+    """make_diamond_lattice ("chain", tests/test_diamond.py) or
+    make_diamond_lattice3 ("mesh", tests/test_diamond333.py) on
+    `device`; kwargs go to the factory."""
+    from libdmet_preview_tpu_torch.models import abinitio
+    if kind == "chain":
+        return abinitio.make_diamond_lattice(device=device, **kwargs)
+    return abinitio.make_diamond_lattice3(device=device, **kwargs)
+
+
+def _diamond_nelec(Lat, basis):
+    from libdmet_preview_tpu_torch.ops import embham
+    rho_mf = to_host(embham.foldRho_k(Lat.rdm1_lo_k, Lat.R2k_basis(basis)))
+    nel = int(round(np.trace(rho_mf[0])))
+    return nel + nel % 2
+
+
+def diamond_one_shot(Lat, meta, device, cc=True):
+    """tests/test_diamond.py / test_diamond333.py:49-67 at vcor = 0: the
+    lattice mean field, ConstructImpHam(int_bath=True), the HF impurity
+    solver (the IB-HF identity) and, with cc, CCSD -> transformResults.
+    Energies per cell."""
+    import libdmet_preview_tpu_torch.dmet.hubbard as dmet
+    from libdmet_preview_tpu_torch.ops.vcor import VcorLocal
+    from libdmet_preview_tpu_torch.solvers import CCSD, SCFSolver
+    nsc = Lat.nscsites
+    vcor = VcorLocal(True, False, nsc)
+    vcor.assign(np.zeros((2, nsc, nsc)))
+    rho, _, res = dmet.RHartreeFock(Lat, vcor, 0.5, None, ires=True)
+    ImpHam, H1e, basis = dmet.ConstructImpHam(Lat, rho, vcor, matching=False,
+                                              int_bath=True)
+    nel = _diamond_nelec(Lat, basis)
+    out = {"E_hf": meta["E_hf"] / Lat.ncells, "E_mf": float(res["E"]),
+           "nelec_emb": nel, "ImpHam": ImpHam, "basis": basis}
+    hf = SCFSolver(restricted=True, device=device)
+    rhoEmb, EEmb = hf.run(ImpHam, nelec=nel)
+    _, E, _ = dmet.transformResults(rhoEmb, EEmb, basis, ImpHam, H1e,
+                                    lattice=Lat, last_dmu=0.0, int_bath=True,
+                                    solver=hf, solver_args={"nelec": nel})
+    out["E_ibhf"] = float(E) * nsc
+    if cc:
+        solver = CCSD(restricted=True, tol=DIAMOND_PROTOCOL["cc_tol"],
+                      device=device)
+        rhoEmb, EEmb = solver.run(ImpHam, nelec=nel)
+        _, E, n = dmet.transformResults(
+            rhoEmb, EEmb, basis, ImpHam, H1e, lattice=Lat, last_dmu=0.0,
+            int_bath=True, solver=solver, solver_args={"nelec": nel})
+        out["E_cc"] = float(E) * nsc
+        out["n_cc"] = float(n)
+    return out
+
+
+def run_diamond_dmet(Lat, device, proto=DIAMOND_PROTOCOL, max_iter=None):
+    """tests/test_diamond333.py:69-93: vcor self-consistency with CCSD
+    (no charge self-consistency), each step a utils.timer stage ("mean
+    field", "impurity solve", "energy", "vcor fit"; ConstructImpHam adds
+    "bath" and "H2").  Returns (E_cell, n_imp, converged, records)."""
+    import libdmet_preview_tpu_torch.dmet.hubbard as dmet
+    from libdmet_preview_tpu_torch.ops.diis import DIIS
+    from libdmet_preview_tpu_torch.ops.vcor import VcorLocal
+    from libdmet_preview_tpu_torch.solvers import CCSD
+    from libdmet_preview_tpu_torch.utils.timer import stage
+    nsc = Lat.nscsites
+    vcor = VcorLocal(True, False, nsc)
+    vcor.assign(np.zeros((2, nsc, nsc)))
+    solver = CCSD(restricted=True, tol=proto["cc_tol"], device=device)
+    adiis = DIIS(space=proto["diis_space"])
+    E_old, E, n, conv, records = None, None, None, False, []
+    for it in range(proto["max_iter"] if max_iter is None else max_iter):
+        with stage("mean field", device):
+            rho, _, _ = dmet.RHartreeFock(Lat, vcor, 0.5, None, ires=True)
+        ImpHam, H1e, basis = dmet.ConstructImpHam(Lat, rho, vcor,
+                                                  matching=False,
+                                                  int_bath=True)
+        nel = _diamond_nelec(Lat, basis)
+        with stage("impurity solve", device):
+            rhoEmb, EEmb = solver.run(ImpHam, nelec=nel)
+        with stage("energy", device):
+            _, E, n = dmet.transformResults(
+                rhoEmb, EEmb, basis, ImpHam, H1e, lattice=Lat, last_dmu=0.0,
+                int_bath=True, solver=solver, solver_args={"nelec": nel})
+        with stage("vcor fit", device):
+            vcor_new, err = dmet.FitVcor(rhoEmb, Lat, basis, vcor, np.inf,
+                                         0.5, MaxIter1=proto["fit_iter"],
+                                         MaxIter2=0)
+        p_new = np.hstack(vcor_new.param)
+        dV = float(np.max(np.abs(p_new - np.hstack(vcor.param))))
+        dE = abs(float(E) * nsc - E_old) if E_old is not None else np.inf
+        vcor.update(np.asarray(adiis.update(p_new)
+                               if it >= proto["diis_from"] else p_new))
+        E_old = float(E) * nsc
+        records.append({"iter": it, "E": E_old, "n": float(n), "dE": dE,
+                        "dV": dV, "fit_err": float(err)})
+        if dE < proto["e_tol"] and dV < proto["v_tol"]:
+            conv = True
+            break
+    return float(E) * nsc, float(n), conv, records
+
+
+# the cells of tests/test_pbc_3d.py's driver oracles besides the H2
+# crystal: the GTH H2 cell (its GTH-optimised valence basis) and a
+# two-cell s + p stripe
+GTH_H2_CELL = {"atoms": [("H", (0.0, 0.0, 0.0)), ("H", (1.6, 0.0, 0.0))],
+               "a": np.eye(3) * 3.2, "basis": "tpu-szv", "unit": "B",
+               "pseudo": "gth-pade", "precision": 1e-8}
+SP_CELL_BASIS = {("H", "sp"): [(0, [(0.9, 1.0)]), (1, [(0.6, 1.0)])]}
+
+
+def gth_h2_cell(pbc_module, **kwargs):
+    """GTH_H2_CELL built by `pbc_module` (either package's ints.pbc)."""
+    from libdmet_preview_tpu_torch.ints.basisopt import make_gth_valence_basis
+    bd = {("H", "tpu-szv"): make_gth_valence_basis("H")}
+    return pbc_module.PbcCell(basis_data=bd, **GTH_H2_CELL, **kwargs)
+
+
+def sp_stripe_cell(pbc_module, **kwargs):
+    """Two cells of two H with an s + p basis along x, built by
+    `pbc_module`."""
+    L = 5.0
+    atoms, tvs = [], []
+    for cx in range(2):
+        T = np.array([cx * L, 0.0, 0.0])
+        tvs.append(T)
+        atoms += [("H", T), ("H", T + np.array([0.0, 0.0, 1.4]))]
+    cell = pbc_module.PbcCell(atoms, np.diag([2 * L, L, L]), basis="sp",
+                              basis_data=SP_CELL_BASIS, precision=1e-9,
+                              **kwargs)
+    return cell.set_translations(2, np.asarray(tvs))
+
+
+def h2_crystal_cell(pbc_module, kmesh=(2, 2, 1), translations=True,
+                    precision=1e-10, **kwargs):
+    """The H2 crystal (h2_crystal_geometry) built by `pbc_module`."""
+    atoms, a, t_vecs = h2_crystal_geometry(kmesh)
+    cell = pbc_module.PbcCell(atoms, a, basis="tight",
+                              basis_data=H2_CRYSTAL_BASIS,
+                              precision=precision, **kwargs)
+    if translations:
+        cell.set_translations(int(np.prod(kmesh)), t_vecs)
+    return cell
+
+
+def emb_driver_oracles(device):
+    """tests/test_pbc_3d.py:111-219 on the port's drivers on `device`:
+    aft (and its cross form) against the dense-ERI transform, FFT-DF on
+    twice the mesh against aft and the grid overlap on the GTH H2 cell, rs
+    against aft at omega = 1.0 with its cross form, rs with p shells.
+    Returns ({name: tensor} for a card-vs-CPU comparison, {check: (value,
+    bound, ok)})."""
+    from libdmet_preview_tpu_torch.ints import pbc
+    from libdmet_preview_tpu_torch.models.abinitio import _rot4
+    vals, checks = {}, {}
+
+    def check(name, v, bound):
+        checks[name] = (float(v), bound, bool(float(v) < bound))
+
+    cs = h2_crystal_cell(pbc, device=device)
+    cd = h2_crystal_cell(pbc, translations=False, device=device)
+    rng = np.random.default_rng(3)
+    Ca = torch.as_tensor(rng.normal(size=(cs.nao, 3)), device=device)
+    Cb = torch.as_tensor(rng.normal(size=(cs.nao, 2)), device=device)
+    dense = cd.intor_eri()
+    vals["aft"] = cs.get_emb_eri_aft(Ca)
+    vals["aft_cross"] = cs.get_emb_eri_aft_cross(Ca, Cb)
+    check("aft vs the dense transform", (vals["aft"] - _rot4(
+        dense, Ca, Ca, Ca, Ca)).abs().max(), 1e-8)
+    check("aft cross vs the dense transform", (vals["aft_cross"] - _rot4(
+        dense, Ca, Ca, Cb, Cb)).abs().max(), 1e-8)
+    vals["rs"] = cs.get_emb_eri_rs(Ca, omega=1.0)
+    vals["rs_cross"] = cs.get_emb_eri_rs_cross(Ca, Cb, omega=1.0)
+    check("rs vs aft (omega 1.0)", (vals["rs"] - vals["aft"]).abs().max(),
+          5e-7)
+    check("rs cross vs aft cross (omega 1.0)",
+          (vals["rs_cross"] - vals["aft_cross"]).abs().max(), 5e-7)
+
+    gc = gth_h2_cell(pbc, device=device)
+    C = torch.as_tensor(np.random.default_rng(0).normal(size=(gc.nao, 2)),
+                        device=device)
+    mesh2 = tuple(2 * n + 1 for n in gc.mesh)
+    vals["gth_aft"] = gc.get_emb_eri_aft(C)
+    vals["gth_fft"] = gc.get_emb_eri_fft(C, mesh=mesh2)
+    check("FFT-DF (twice the mesh) vs aft",
+          (vals["gth_fft"] - vals["gth_aft"]).abs().max(), 2e-4)
+    pts = gc.grid_coords(mesh2)
+    ao = gc.eval_ao_pbc(pts)
+    vals["S_grid"] = ao.T @ ao * (gc.vol / len(pts))
+    check("the grid overlap", (vals["S_grid"] - gc.intor_ovlp()).abs().max(),
+          1e-5)
+
+    sc = sp_stripe_cell(pbc, device=device)
+    C = torch.as_tensor(np.random.default_rng(1).normal(size=(sc.nao, 3)),
+                        device=device)
+    vals["sp_aft"] = sc.get_emb_eri_aft(C)
+    vals["sp_rs"] = sc.get_emb_eri_rs(C, omega=0.8)
+    check("rs with p shells vs aft (relative)",
+          (vals["sp_rs"] - vals["sp_aft"]).abs().max()
+          / max(1.0, float(vals["sp_aft"].abs().max())), 5e-6)
+    return vals, checks
+
+
+def cell_on(cell, device):
+    """A copy of a PbcCell whose G-space work runs on `device`, with the
+    integrals the cell kept (the short-range rows, the pair-FT column)
+    carried over: a second device can replay the drivers from the same
+    inputs."""
+    new = copy.copy(cell)
+    new.device = torch.device(device)
+    new._cache = {k: (v.to(device) if isinstance(v, torch.Tensor) else v)
+                  for k, v in cell._cache.items()}
+    if cell._ft_cache is not None:
+        Gv, f, expand = cell._ft_cache
+        new._ft_cache = (Gv, f.to(device), expand)
+    return new
