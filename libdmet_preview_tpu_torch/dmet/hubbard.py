@@ -93,7 +93,12 @@ def ConstructImpHam(Lat, rho, v, mu=None, matching=True, local=True,
 
 
 def _match_bath(basis_bath):
+    """Rotate the beta bath to match the alpha bath.  An empty bath (a
+    one-cell lattice: the impurity is the whole supercell) has nothing to
+    match; the JAX package's reshape raises there."""
     shape = basis_bath.shape
+    if shape[-1] == 0:
+        return basis_bath
     flat = basis_bath.reshape(2, -1, shape[-1])
     return embham.basis_matching(flat).reshape(shape)
 

@@ -94,9 +94,12 @@ def get_lib():
 
 
 def num_threads():
-    """Threads of the short-range core: the CPUs this process may run
-    on."""
-    return len(os.sched_getaffinity(0))
+    """Threads of the short-range core: the intra-op threads PyTorch has
+    been given (torch.get_num_threads(), which a process sets with
+    torch.set_num_threads), at most the CPUs this process may run on."""
+    import torch
+    return max(1, min(torch.get_num_threads(),
+                      len(os.sched_getaffinity(0))))
 
 
 _SR_SRC_DATA, _SR_SO = _src_snapshot(_PKG_DIR / "csrc" / "_sr_core.cpp")

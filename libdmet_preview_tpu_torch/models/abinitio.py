@@ -26,6 +26,13 @@ one argsort on the device, and one host read per iteration for the
 stopping test.  The translation difference table tr_diff[C, D] = index of
 T_C - T_D is the lattice's own subtraction map (LatticeModel._sub_tab).
 
+The antiferromagnetic oxides (make_nio_afm_lattice, make_nio_fm_lattice,
+make_cuo2_afm_lattice) build their cell, take its S, hcore,
+range-separated ERI and Ewald energy (or read them from the JAX
+package's .npz cache keys), run the supercell UHF (_uhf_incore) and hand
+it to _afm_oxide_tail: Lowdin LOs, per-spin LO operators, the LO ERI and
+its Cholesky factors, the staggered d moments.
+
 Energies and densities follow the JAX package: make_h_ring_lattice and
 make_hchain_pbc_lattice store the SPIN-TRACED rdm1 stripes on the lattice,
 as the JAX factories do (with an unrestricted embedding basis, _emb_H1
@@ -39,6 +46,7 @@ import torch
 from libdmet_preview_tpu_torch.lo.lowdin import _h, lowdin_orth
 from libdmet_preview_tpu_torch.utils import logger as log
 from libdmet_preview_tpu_torch.utils.misc import as_f64, as_tensor, to_host
+from libdmet_preview_tpu_torch.utils.timer import stage
 from libdmet_preview_tpu_torch.models.engine_ints import (  # noqa: F401
     EngineInts, cell_engine_ints, load_engine_ints, mole_engine_ints,
     save_engine_ints)
@@ -806,7 +814,6 @@ def make_diamond_lattice3(kmesh=(3, 3, 3), a_ang=3.567, basis="gth-szv",
                      fcol_re=fcol_c.real, fcol_im=fcol_c.imag)
             os.replace(tmp, cfile)
     info = {}
-    from libdmet_preview_tpu_torch.utils.timer import stage
     with stage("k-HF", device):
         E_elec, rho_st, fock_st = kscf_stripe_hf(
             h_st, S_st, eriF, cell.tr_diff, kmesh, cell.nelectron,
@@ -933,3 +940,270 @@ def _uhf_incore(S, hcore, eri, dm0, na, nb, e_nuc=0.0, tol=1e-9,
         log.warn("_uhf_incore not converged: dE=%.2e err=%.2e",
                  E - e_old, en)
     return E + e_nuc, dm
+
+
+# ----------------------------------------------------------------------
+# antiferromagnetic transition-metal oxides (NiO AFM-II / FM, the CuO2
+# plane): supercell UHF on the range-separated cell ERI, Lowdin LOs
+# ----------------------------------------------------------------------
+
+def make_nio_afm_lattice(nk=2, a_ang=4.17, gmax=None, chol_tol=1e-8,
+                         precision=1e-10, basis_variant="solid",
+                         cache_file=None, device=torch.device("cuda")):
+    """Ab initio DMET lattice for ANTIFERROMAGNETIC NiO (the reference's
+    examples/dmet/03-dmet-nio-afm): the rhombohedral AFM-II double cell
+    (2 Ni + 2 O; the two Ni carry opposite spins), GTH-PADE
+    pseudopotentials with s/p/d nonlocal projectors and the tpu-szv
+    minimal valence basis (30 orbitals per cell), on a BvK torus of nk
+    cells along the third primitive vector.
+
+    Spin-polarized supercell UHF from an AFM guess, Lowdin LOs, per-spin
+    lattice operators, the dense LO ERI and its Cholesky factors for the
+    interacting bath (_afm_oxide_tail).  cache_file: an .npz path, or a
+    directory for the JAX package's key nio_rs1_<nk>_<a>_<variant>_<prec>;
+    its S / hcore / eri / e_nuc are read when it exists, else written.
+    Returns (Lat, meta)."""
+    return _make_nio_lattice("afm", nk, a_ang, gmax, chol_tol, precision,
+                             basis_variant, cache_file, device)
+
+
+def make_nio_fm_lattice(nk=2, a_ang=4.17, gmax=None, chol_tol=1e-8,
+                        precision=1e-10, basis_variant="solid",
+                        cache_file=None, device=torch.device("cuda")):
+    """FERROMAGNETIC NiO (the reference's examples/dmet/04-dmet-nio-fm,
+    cell.spin = 4 per double cell): make_nio_afm_lattice's cell and
+    integrals (the same cache key), both Ni majority-alpha and the
+    supercell UHF at fixed S_z = 2 per Ni (n_alpha - n_beta = 4 nk).
+    meta["nelec_ab"] holds (n_alpha, n_beta).  Returns (Lat, meta)."""
+    return _make_nio_lattice("fm", nk, a_ang, gmax, chol_tol, precision,
+                             basis_variant, cache_file, device)
+
+
+def _oxide_cell(atoms, a_sc, t_vecs, basis_syms, basis_variant, gmax,
+                precision, device):
+    """The oxide supercell: the tpu-szv basis of each species, GTH-PADE,
+    translations t_vecs.  Returns (cell, nao per atom by species)."""
+    from libdmet_preview_tpu_torch.ints.basisopt import \
+        make_gth_valence_basis
+    from libdmet_preview_tpu_torch.ints.pbc import PbcCell
+    basis_data = {(sym, "tpu-szv"): make_gth_valence_basis(
+        sym, variant=basis_variant) for sym in basis_syms}
+    cell = PbcCell(atoms, a_sc, basis="tpu-szv", basis_data=basis_data,
+                   unit="B", pseudo="gth-pade", gmax=gmax,
+                   precision=precision, device=device)
+    cell.set_translations(len(t_vecs), np.asarray(t_vecs))
+    nao_atom = {sym: sum({0: 1, 1: 3, 2: 6}[l] for l, _ in
+                         basis_data[(sym, "tpu-szv")])
+                for sym in basis_syms}
+    return cell, nao_atom
+
+
+def _oxide_integrals(cell, cache_file, key, name):
+    """S, hcore, the range-separated ERI (intor_eri_rs: the bare G mesh
+    underconverges the sharp d-shell pairs) and e_nuc of an oxide cell,
+    read from or written to cache_file (an .npz path, or a directory for
+    `key`) with the JAX package's layout."""
+    import os
+    cfile = None
+    if cache_file is not None:
+        cfile = cache_file if cache_file.endswith(".npz") \
+            else os.path.join(cache_file, key)
+    if cfile is not None and os.path.exists(cfile):
+        log.result("%s: loading cached integrals %s", name, cfile)
+        dat = np.load(cfile)
+        return (dat["S"], dat["hcore"], dat["eri"], float(dat["e_nuc"]))
+    S = cell.intor_ovlp()
+    hcore = cell.intor_hcore()
+    eri = cell.intor_eri_rs()
+    e_nuc = cell.energy_nuc()
+    if cfile is not None:
+        os.makedirs(os.path.dirname(cfile) or ".", exist_ok=True)
+        tmp = cfile + ".tmp.npz"
+        np.savez(tmp, S=to_host(S), hcore=to_host(hcore), eri=to_host(eri),
+                 e_nuc=e_nuc)
+        os.replace(tmp, cfile)
+    return S, hcore, eri, e_nuc
+
+
+def _diag_guess(atoms, occs):
+    """(2, n, n) diagonal density guess: occs(sym, k) gives the alpha and
+    beta occupations, in shell order, of the k-th atom of species sym."""
+    da, db, seen = [], [], {}
+    for sym, _ in atoms:
+        k = seen.get(sym, 0)
+        seen[sym] = k + 1
+        oa, ob = occs(sym, k)
+        da += oa
+        db += ob
+    return np.asarray([np.diag(da), np.diag(db)])
+
+
+def _nio_occs(order):
+    """The NiO guess occupations (for _diag_guess): AFM, Ni sublattice A
+    majority-alpha d and B majority-beta; FM, both majority-alpha; O
+    closed shell.  Ni shell order 3s, 4s, p, d."""
+    def occs(sym, k):
+        if sym == "Ni":
+            up = k % 2 == 0 if order == "afm" else True
+            da, db = (0.85, 0.55) if up else (0.55, 0.85)
+            return ([1.0, 0.5] + [1.0] * 3 + [da] * 6,
+                    [1.0, 0.5] + [1.0] * 3 + [db] * 6)
+        return [1.0] + [2.0 / 3.0] * 3, [1.0] + [2.0 / 3.0] * 3
+    return occs
+
+
+def _cuo2_occs(sym, k):
+    """The CuO2 d9 guess occupations (for _diag_guess): Cu sublattice A
+    majority-alpha d, B majority-beta; O^2- 2s2 2p6.  Cu shell order 4s,
+    d."""
+    if sym == "Cu":
+        da, db = (0.88, 0.62) if k % 2 == 0 else (0.62, 0.88)
+        return [0.25] + [da] * 6, [0.25] + [db] * 6
+    return [1.0] * 4, [1.0] * 4
+
+
+def _d_slices(atoms, nao_atom, magnetic, d0):
+    """The d-orbital index ranges of the `magnetic` atoms among `atoms`
+    (the first cell), d0 orbitals into each atom (shell order)."""
+    out, p = [], 0
+    for sym, _ in atoms:
+        if sym == magnetic:
+            out.append(slice(p + d0, p + d0 + 6))
+        p += nao_atom[sym]
+    return out
+
+
+def _make_nio_lattice(order, nk, a_ang, gmax, chol_tol, precision,
+                      basis_variant, cache_file, device):
+    from libdmet_preview_tpu_torch.ints.pbc import BOHR_PER_ANGSTROM
+    a0 = a_ang * BOHR_PER_ANGSTROM
+    # AFM-II rhombohedral double cell (the reference's NiO-AFM-417 POSCAR)
+    P = 0.5 * a0 * np.asarray([[2.0, 1.0, 1.0],
+                               [1.0, 2.0, 1.0],
+                               [1.0, 1.0, 2.0]])
+    fracs = [("Ni", np.array([0.0, 0.0, 0.0])),       # Ni (spin up)
+             ("Ni", np.array([0.5, 0.5, 0.5])),       # Ni (spin down)
+             ("O", np.array([0.25, 0.25, 0.25])),
+             ("O", np.array([0.75, 0.75, 0.75]))]
+    atoms = [(sym, f @ P + c * P[2]) for c in range(nk) for sym, f in fracs]
+    cell, nao_atom = _oxide_cell(
+        atoms, np.asarray([P[0], P[1], nk * P[2]]),
+        np.arange(nk)[:, None] * P[2][None, :], ("Ni", "O"), basis_variant,
+        gmax, precision, device)
+    nlo = cell.nao // nk
+    log.result("NiO %s cell: nao = %d (%d per cell), nelec = %d",
+               order.upper(), cell.nao, nlo, cell.nelectron)
+    key = "nio_rs1_%d_%s_%s_%.0e.npz" % (nk, a_ang, basis_variant, precision)
+    S, hcore, eri, e_nuc = _oxide_integrals(cell, cache_file, key, "NiO")
+
+    if order == "afm":
+        na = nb = cell.nelectron // 2
+    else:
+        sz2 = 4 * nk          # 2 unpaired electrons per Ni, 2 Ni per cell
+        na = (cell.nelectron + sz2) // 2
+        nb = cell.nelectron - na
+    with stage("supercell UHF", device):
+        E_hf, dm = _uhf_incore(S, hcore, eri,
+                               _diag_guess(atoms, _nio_occs(order)), na, nb,
+                               e_nuc=e_nuc, tol=1e-9, device=device)
+    Lat, meta = _afm_oxide_tail(
+        cell, nk, nlo, S, hcore, eri, e_nuc, dm, E_hf, chol_tol,
+        _d_slices(atoms[:len(fracs)], nao_atom, "Ni", 5), device)
+    meta["mag_ni"] = meta["mag_d"]
+    meta["nelec_ab"] = (na, nb)
+    return Lat, meta
+
+
+def _afm_oxide_tail(cell, nk, nlo, S, hcore, eri, e_nuc, dm, E_hf,
+                    chol_tol, mag_slices, device=torch.device("cuda")):
+    """The oxide lattice from its supercell UHF, on `device`: Lowdin LOs,
+    per-spin LO operators, the dense LO ERI (four GEMMs) and its Cholesky
+    factors, stripes, and the staggered d moments over `mag_slices` (LO
+    ranges of the magnetic atoms in the first cell)."""
+    from libdmet_preview_tpu_torch.models.lattice import ChainLattice
+    from libdmet_preview_tpu_torch.ops.eri_transform import cholesky_eri
+    from libdmet_preview_tpu_torch.solvers.scf import _veff_uhf
+    with stage("LO transform", device):
+        S = as_f64(S, device)
+        C = lowdin(S)
+        h_lo = C.T @ as_f64(hcore, device) @ C
+        SC = S @ C
+        dm = as_f64(dm, device)
+        rdm1_lo = torch.stack([SC.T @ dm[s] @ SC for s in range(2)])
+        eri_lo = _rot4(as_f64(eri, device), C, C, C, C)
+        va, vb = _veff_uhf(rdm1_lo[0], rdm1_lo[1], eri_lo, eri_lo, eri_lo)
+        fock_lo = torch.stack([h_lo + va, h_lo + vb])
+        h_R = to_host(_stripe_symm(h_lo, nk, nlo))
+        h_R = np.asarray([h_R, h_R])
+        fock_R, rdm1_R = [to_host(torch.stack([_stripe_symm(M[s], nk, nlo)
+                                               for s in range(2)]))
+                          for M in (fock_lo, rdm1_lo)]
+    with stage("LO ERI Cholesky", device):
+        chol_L = cholesky_eri(eri_lo, tol=chol_tol)
+    n4 = (slice(None, nlo),) * 4
+    eri_imp = torch.stack([eri_lo[n4]] * 3)    # aa, bb, ab equal (same C)
+
+    Lat = ChainLattice(nk * nlo, nlo)
+    Ham = AbInitioHam(h_R, fock_R, chol_L, eri_imp, e_nuc / nk)
+    Lat.set_Ham_abinitio(Ham, rdm1=rdm1_R, device=device)
+    Lat.set_val_virt_core(nlo, 0, 0)
+    mag = [float(torch.trace(rdm1_lo[0][b, b] - rdm1_lo[1][b, b]))
+           for b in mag_slices]
+    meta = {"cell": cell, "E_hf": E_hf, "E_hf_elec": E_hf - e_nuc,
+            "e_nuc": e_nuc, "C_ao_lo": C, "eri_lo": eri_lo, "h_lo": h_lo,
+            "fock_lo": fock_lo, "rdm1_lo": rdm1_lo, "nlo": nlo, "S": S,
+            "mag_d": np.asarray(mag)}
+    return Lat, meta
+
+
+def make_cuo2_afm_lattice(nk=2, a_ang=3.80, vac_ang=8.0, gmax=None,
+                          chol_tol=1e-8, precision=1e-10,
+                          basis_variant="solid", cache_file=None,
+                          device=torch.device("cuda")):
+    """Ab initio DMET lattice for the ANTIFERROMAGNETIC CuO2 plane, the
+    cuprate parent compound's active layer: the square plane (lattice
+    constant a_ang) in its sqrt2 x sqrt2 AFM double cell (2 Cu + 4 O) with
+    vac_ang of vacuum along z, on a BvK torus of nk cells along the first
+    AFM vector.  The plane is (CuO2)^2- per formula unit (Cu^2+ d9, O^2-
+    closed shell); a uniform background compensates the two extra
+    electrons (the G = 0 Coulomb terms are dropped), so cell.nelectron is
+    set to 25 per formula after the cell is built.  Cu carries the q11
+    GTH-PADE pseudopotential (4s / 3d valence) and the tpu-szv basis.
+
+    Supercell UHF from a staggered d9 guess, then _afm_oxide_tail.
+    cache_file as in make_nio_afm_lattice (key cuo2_rs1_...).  Returns
+    (Lat, meta) with meta["mag_d"] the staggered Cu d moments."""
+    from libdmet_preview_tpu_torch.ints.pbc import BOHR_PER_ANGSTROM
+    a0 = a_ang * BOHR_PER_ANGSTROM
+    c0 = vac_ang * BOHR_PER_ANGSTROM
+    # A1 = (a, a), A2 = (a, -a); Cu at (0, 0) and (a, 0) carry opposite
+    # spins; 4 bridging O at the half-integer sites
+    A = np.asarray([[a0, a0, 0.0], [a0, -a0, 0.0], [0.0, 0.0, c0]])
+    sites = [("Cu", (0.0, 0.0)), ("Cu", (1.0, 0.0)),
+             ("O", (0.5, 0.0)), ("O", (0.0, 0.5)),
+             ("O", (1.5, 0.0)), ("O", (1.0, 0.5))]
+    atoms = [(sym, np.asarray([x * a0, y * a0, 0.0]) + c * A[0])
+             for c in range(nk) for sym, (x, y) in sites]
+    cell, nao_atom = _oxide_cell(
+        atoms, np.asarray([nk * A[0], A[1], A[2]]),
+        np.arange(nk)[:, None] * A[0][None, :], ("Cu", "O"), basis_variant,
+        gmax, precision, device)
+    # (CuO2)^2- per formula: 11 + 2 * 6 + 2 = 25 electrons
+    cell.nelectron = 25 * 2 * nk
+    nlo = cell.nao // nk
+    log.result("CuO2 AFM plane: nao = %d (%d per cell), nelec = %d "
+               "(charged, jellium-compensated)", cell.nao, nlo,
+               cell.nelectron)
+    key = "cuo2_rs1_%d_%s_%s_%.0e.npz" % (nk, a_ang, basis_variant,
+                                          precision)
+    S, hcore, eri, e_nuc = _oxide_integrals(cell, cache_file, key, "CuO2")
+
+    na = nb = cell.nelectron // 2
+    with stage("supercell UHF", device):
+        E_hf, dm = _uhf_incore(S, hcore, eri,
+                               _diag_guess(atoms, _cuo2_occs), na, nb,
+                               e_nuc=e_nuc, tol=1e-9, device=device)
+    return _afm_oxide_tail(cell, nk, nlo, S, hcore, eri, e_nuc, dm, E_hf,
+                           chol_tol,
+                           _d_slices(atoms[:len(sites)], nao_atom, "Cu", 1),
+                           device)

@@ -13,7 +13,9 @@ are s4-packed once; the syrk is eri_kernels.syrk_df: on CUDA tensors the
 hand-written Hopper kernels (the symmetric one for the aa and bb blocks,
 the cross one for ab), on CPU tensors their plain versions.  Each piece is
 a utils.timer stage.  The JAX package's size rule for
-choosing its Pallas kernel and its HDF5 `outcore` mode are not ported.
+choosing its Pallas kernel is not ported.  get_emb_eri_chol(outcore=path)
+writes each block to the HDF5 dataset "eri" as the syrk makes it (h5py is
+imported only then) and returns the dataset, open for reading.
 The GSO ERI (the particle-hole transformed spinless interaction) is one
 symmetric syrk of the packed species difference La - Lb: on CUDA the
 hand-written kernel, where the JAX package runs a plain einsum.
@@ -79,14 +81,20 @@ def _flat_basis(L, basis):
     return basis.reshape(spin, ncells * nlo, neo)
 
 
-def get_emb_eri_chol(L, basis):
+def get_emb_eri_chol(L, basis, outcore=None):
     """Embedding ERI from Cholesky/DF factors.
 
     L: (naux, nsites, nsites) float64 tensor in the (LO, full-lattice)
     site basis; basis: (spin, ncells, nlo, neo) embedding basis (R
     stripe), tensor or array.  Returns the (spin_pair, neo, neo, neo, neo)
     tensor on L's device with blocks [aa] or [aa, bb, ab] (chemist),
-    matching embham._emb_H2's contract."""
+    matching embham._emb_H2's contract.
+
+    outcore: an HDF5 path.  The blocks are then written, one at a time as
+    the syrk makes them, to the dataset "eri" of that shape (the
+    reference's outcore result mode, eri_transform.py:311-327), and the
+    dataset is returned open for reading: for embeddings whose ERI does
+    not fit in memory twice."""
     C = _flat_basis(L, basis)
     spin, _, neo = C.shape
     dev = L.device
@@ -96,14 +104,26 @@ def get_emb_eri_chol(L, basis):
         Fs = [pack_tril(Lemb) for Lemb in Ls]
     del Ls
     pairs = [(0, None)] if spin == 1 else [(0, None), (1, None), (0, 1)]
-    out = torch.empty((len(pairs),) + (neo,) * 4, dtype=L.dtype, device=dev)
+    shape = (len(pairs),) + (neo,) * 4
+    if outcore is None:
+        out = torch.empty(shape, dtype=L.dtype, device=dev)
+    else:
+        import h5py
+        f = h5py.File(outcore, "w")
+        dset = f.create_dataset("eri", shape, dtype="f8")
     for m, (s1, s2) in enumerate(pairs):
         name = "syrk (tri kernel)" if s2 is None else "syrk ab (cross kernel)"
         with stage(name, dev):
             s4 = syrk_df(Fs[s1], None if s2 is None else Fs[s2])
         with stage("ERI unpack", dev):
-            unpack_s4(s4, neo, out=out[m])
-    return out
+            if outcore is None:
+                unpack_s4(s4, neo, out=out[m])
+            else:
+                dset[m] = unpack_s4(s4, neo).cpu().numpy()
+    if outcore is None:
+        return out
+    f.close()
+    return h5py.File(outcore, "r")["eri"]
 
 
 def get_emb_eri_gso_chol(L, basis):

@@ -17,7 +17,7 @@ import scipy.linalg as sla
 import torch
 
 from libdmet_preview_tpu_torch.utils import logger as log
-from libdmet_preview_tpu_torch.utils.misc import as_f64
+from libdmet_preview_tpu_torch.utils.misc import as_f64, host_blas_threads
 from libdmet_preview_tpu_torch.ops.diis import DIIS
 from libdmet_preview_tpu_torch.models.integral import Integral, restore_eri
 
@@ -161,9 +161,10 @@ class SCF(object):
         nparam = nrot if same_spin else 2 * nrot
         # small deterministic start offset: lets BFGS escape exact saddles
         x0 = np.random.RandomState(7).randn(nparam) * 1e-3
-        res = sp_minimize(fun, x0, jac=True, method="BFGS",
-                          options={"gtol": max(tol * 10, 1e-9),
-                                   "maxiter": 2000})
+        with host_blas_threads():
+            res = sp_minimize(fun, x0, jac=True, method="BFGS",
+                              options={"gtol": max(tol * 10, 1e-9),
+                                       "maxiter": 2000})
         self.oo_iterations.append(int(res.nit))
         p = res.x
         Ka = _host(unpack(self._dev(p[:nrot])))

@@ -88,6 +88,19 @@ def to_host(x):
     return np.asarray(x)
 
 
+def host_blas_threads():
+    """Context manager: the host BLAS (NumPy / SciPy) inside the block uses
+    at most the intra-op threads PyTorch has been given
+    (torch.get_num_threads()), as the port's own host loops do; a no-op
+    where threadpoolctl is not installed."""
+    try:
+        from threadpoolctl import threadpool_limits
+    except ImportError:
+        import contextlib
+        return contextlib.nullcontext()
+    return threadpool_limits(torch.get_num_threads(), user_api="blas")
+
+
 def pack_tril(A):
     """Pack the lower triangle of the last two axes (row-major tril order)."""
     if isinstance(A, torch.Tensor):

@@ -11,7 +11,8 @@ gradient tests), the JAX suite's anchors at its own 1e-6 / 1e-8,
 derivatives 1e-7 against central differences of step 1e-4.
 
 The JAX package's three orbital optimizations are independent, so one
-module-scoped fixture runs them once, each in its own thread.
+module-scoped fixture runs them once, each in its own thread, at most
+two at a time.
 """
 
 from concurrent.futures import ThreadPoolExecutor
@@ -70,7 +71,7 @@ def jax_energies():
     seed=11), UCASSCF(3, 2) on ring_sym_broken() and GCASSCF on the
     frozen-core window of gso_ring()."""
     kinds = ("restricted", "unrestricted", "ghf")
-    with ThreadPoolExecutor(len(kinds)) as ex:
+    with ThreadPoolExecutor(min(2, len(kinds))) as ex:
         futures = {k: ex.submit(_jax_casscf, k) for k in kinds}
         return {k: f.result() for k, f in futures.items()}
 

@@ -19,10 +19,8 @@ twice the mesh against aft 2e-4, the grid overlap 1e-5, rs against aft at
 omega = 1.0 with the cross form 5e-7, rs with p shells 5e-6 relative);
 the short-range rows kept on the cell per (omega, pair_tol); and the
 threaded native core bit-identical to one thread.  The JAX sides run once
-per module, each case in its own thread.
+per module, one case at a time.
 """
-
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -138,10 +136,11 @@ CASES = ["crystal", "crystal_dense", "gth", "sp"] + [
 def values():
     from libdmet_preview_tpu.ints import pbc as jpbc
     from libdmet_preview_tpu_torch.ints import pbc as tpbc
-    with ThreadPoolExecutor(len(CASES)) as ex:
-        futs = {c: ex.submit(_values, jpbc, c) for c in CASES}
-        port = {c: _values(tpbc, c) for c in CASES}
-        jax = {c: f.result() for c, f in futs.items()}
+    # one case at a time: the JAX package's short-range rows make one
+    # native call per bra pair, and beside the port's cases in another
+    # thread they took minutes under a loaded test run
+    jax = {c: _values(jpbc, c) for c in CASES}
+    port = {c: _values(tpbc, c) for c in CASES}
     return jax, port
 
 

@@ -12,7 +12,7 @@ Tolerances: grid points exactly, weights 1e-14 relative to max |w|, AO
 values and gradients 1e-14; the functionals 1e-13 relative; E_xc 1e-12,
 v_xc 1e-11; v_xc against central differences of E_xc (step 1e-5) 1e-8.
 The JAX package's evaluations (one jit compile each) run once, each in
-its own thread (a module-scoped fixture).
+its own thread, at most two at a time (a module-scoped fixture).
 """
 
 from concurrent.futures import ThreadPoolExecutor
@@ -147,7 +147,7 @@ def _h_atom(pkg):
 def jax_exc(h2_grid):
     """The JAX package's (E_xc, v_xc): on H2 for each functional and spin,
     and on the fully polarized H atom; each evaluation (a jit compile) in
-    its own thread."""
+    its own thread, at most two at a time."""
     from libdmet_preview_tpu.ints import xc as jx
     cj, wj, aj, gj = h2_grid["j"]
     wa, aa, ga = _h_atom("libdmet_preview_tpu")
@@ -156,7 +156,7 @@ def jax_exc(h2_grid):
             for spin in (1, 2)}
     jobs.update({("H atom", xc): (np.array([[[1.0]], [[0.0]]]), aa, wa,
                                   False, xc, ga) for xc in H_ATOM_XC})
-    with ThreadPoolExecutor(len(jobs)) as ex:
+    with ThreadPoolExecutor(min(2, len(jobs))) as ex:
         futures = {k: ex.submit(jx.eval_exc_vxc, *a) for k, a in jobs.items()}
         return {k: (f.result()[0], np.asarray(f.result()[1]))
                 for k, f in futures.items()}

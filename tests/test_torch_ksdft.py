@@ -12,8 +12,8 @@ Tolerances: E 1e-9, dm 1e-7 and the same SCF iteration count against JAX;
 RKS(None, hyb=1) against the port's SCF RHF 1e-9; the Dudarev oracles
 1e-12; v_U against central differences 1e-7; hub_u_correction 1e-12 and
 HF_plus_U (rho 1e-8, E 1e-9) against JAX; the bare GW limit 1e-9.
-The JAX drivers of the cases run once, each in its own thread (a
-module-scoped fixture).
+The JAX drivers of the cases run once, each in its own thread, at most
+two at a time (a module-scoped fixture).
 """
 
 from concurrent.futures import ThreadPoolExecutor
@@ -104,8 +104,9 @@ def _jax_ks(case):
 
 @pytest.fixture(scope="module")
 def jax_ks():
-    """{case: the JAX driver's results}, each case in its own thread."""
-    with ThreadPoolExecutor(len(CASES)) as ex:
+    """{case: the JAX driver's results}, each case in its own thread, at
+    most two at a time."""
+    with ThreadPoolExecutor(min(2, len(CASES))) as ex:
         futures = {case: ex.submit(_jax_ks, case) for case in CASES}
         return {case: f.result() for case, f in futures.items()}
 

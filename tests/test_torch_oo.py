@@ -12,7 +12,7 @@ gradient 1e-6 against central differences of step 1e-5.
 
 The JAX package's runs of the cases are independent and slow (each
 evaluation re-traces its jitted pieces), so one module-scoped fixture
-runs them all once, each in its own thread.
+runs them all once, each in its own thread, at most two at a time.
 """
 
 from concurrent.futures import ThreadPoolExecutor
@@ -93,7 +93,7 @@ def _jax_run(case):
 @pytest.fixture(scope="module")
 def jax_runs():
     """{case: (rdm1, E, oo_converged)} of the JAX package."""
-    with ThreadPoolExecutor(len(CASES)) as ex:
+    with ThreadPoolExecutor(min(2, len(CASES))) as ex:
         futures = {case: ex.submit(_jax_run, case) for case in CASES}
         return {case: f.result() for case, f in futures.items()}
 

@@ -19,7 +19,7 @@ the NaCl Madelung constant (1e-9), the rotated chain against the plane
 (1e-8 / 1e-9), stripe against dense (1e-10 / 1e-8), the PBC-HF molecular
 limit (5e-3, and the Ewald self energy 1e-4), and intor_eri_rs converged
 on a sharp pair (1e-7).  The JAX sides run once per module, each case in
-its own thread.
+its own thread, at most two at a time.
 """
 
 from concurrent.futures import ThreadPoolExecutor
@@ -111,7 +111,7 @@ def _values(M, case):
 def values():
     from libdmet_preview_tpu.ints import pbc as jpbc
     from libdmet_preview_tpu_torch.ints import pbc as tpbc
-    with ThreadPoolExecutor(len(CELLS)) as ex:
+    with ThreadPoolExecutor(min(2, len(CELLS))) as ex:
         futs = {c: ex.submit(_values, jpbc, c) for c in CELLS}
         port = {c: _values(tpbc, c) for c in CELLS}
         jax = {c: f.result() for c, f in futs.items()}

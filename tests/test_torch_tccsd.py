@@ -10,7 +10,8 @@ run_dmet_ham == e_tot 1e-8, the _TStarFrozen backward against central
 differences 1e-7.
 
 The JAX package's TCCSD runs of the cases are independent, so one
-module-scoped fixture runs them all once, each in its own thread.
+module-scoped fixture runs them all once, each in its own thread, at
+most two at a time.
 """
 
 from concurrent.futures import ThreadPoolExecutor
@@ -95,7 +96,7 @@ def _jax_tccsd(case):
 @pytest.fixture(scope="module")
 def jax_tccsd():
     """{case: (rdm1, E)} of the JAX package's TCCSD."""
-    with ThreadPoolExecutor(len(TCC_CASES)) as ex:
+    with ThreadPoolExecutor(min(2, len(TCC_CASES))) as ex:
         futures = {case: ex.submit(_jax_tccsd, case) for case in TCC_CASES}
         return {case: f.result() for case, f in futures.items()}
 
