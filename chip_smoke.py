@@ -30,8 +30,10 @@ Phases, in order; any failure raises and the process exits non-zero:
      same seeds as bench.py): one step on the card against the same step
      on the CPU, then 10 chained iterations on the card, counting kernel
      launches;
-  5. the 1D Hubbard flagship (ChainLattice(18, 2), U=4, PMInitGuess): one
-     step on the card against the CPU;
+  5. the 1D Hubbard flagship through the port's entry point
+     (libdmet_preview_tpu_torch.entry.entry: ChainLattice(18, 2), U=4,
+     PMInitGuess, 20 fit steps): its step on the card against the CPU at
+     its own (p0, rho_target) and at a target the fit has work on;
   6. the unrestricted ab initio path, one-shot interacting-bath UHF-DMET
      at the width of the CuO2 AFM plane (8 cells x 30 LOs, neo=60,
      naux=2400; inputs made with NumPy from fixed seeds): HartreeFock ->
@@ -86,9 +88,9 @@ Phases, in order; any failure raises and the process exits non-zero:
          MaxIter2=300, imp_fit=True, BFGS=True) to convergence (E/site
          -0.51685 at 1e-4), with the fit's evaluations and seconds per
          iteration; then the same FitVcorFull once on the 40 x 40 lattice
-         of 8a (800 Hermitian 4 x 4 blocks per evaluation): seconds per
-         evaluation, and the gradient against central differences in
-         three random directions (1e-6 relative);
+         of 8a (800 Hermitian 4 x 4 blocks per evaluation, 60
+         iterations): seconds per evaluation, and the gradient against
+         central differences in three random directions (1e-6 relative);
      8c. the three-band cuprate model at full width: Square3BandAFM(20,
          20, 1, 1) (400 k-points of 6 x 6 blocks, two CuO2 units per
          cell), Hubbard3band_ref("Hanke") in the electron representation,
@@ -140,10 +142,10 @@ Phases, in order; any failure raises and the process exits non-zero:
          get_emb_eri_chol of the same integrals for a random real (1, 8,
          30, 60) basis (1e-10 relative); get_jk_from_gdf against J, K
          from einsums over the Cholesky vectors (1e-10); both on the card
-         against the CPU (1e-10); write_cderi -> read_cderi of the
-         factors bit-identical; on a 6-cell, 4-orbital dense case
+         against the CPU (1e-10); on a 6-cell, 4-orbital dense case
          make_gdf_factors' M_q = F F^H against the analytic factors'
-         (1e-10).
+         (1e-10), and write_cderi -> read_cderi of those factors
+         bit-identical.
 
   10. the superconducting / GSO formalism (dmet.loop.run_dmet_sc,
      dmet.hubbard_gso, dmet.hubbard_bcs, ops.spinless):
@@ -341,11 +343,33 @@ Phases, in order; any failure raises and the process exits non-zero:
      16c. the CuO2 plane (tests/test_cuo2_afm.py:27-72): E_hf at its anchor
           (5e-6) and the recorded values, moments beyond +-0.25, the
           mean-field (5e-5) and IB (1e-5) identities, 2 + 1 launches; the
-          mean field, ConstructImpHam and the impurity UHF replayed on the
-          CPU from the same lattice operators and factors (1e-8 on
-          gauge-invariant quantities);
+          mean field and ConstructImpHam replayed on the CPU from the
+          same lattice operators and factors (1e-8 on gauge-invariant
+          quantities);
      then both kernels timed at the oxide path's (naux, neo) beside cuBLAS
      and their bounds, and the peak device memory of the phase.
+
+  17. the scale-out layer (parallel/kmesh over torch.distributed, the
+     dry run of parallel/dryrun), every sharded function against the
+     serial port path (workloads.kmesh_cases):
+     17a. an NCCL group of one rank in this process (HashStore):
+          hf_rho_sharded, transform_h1_sharded and the vcor gradient
+          through the sharded Fermi density on SquareLattice(40, 40, 2,
+          2) (1e-8); get_emb_eri_chol_sharded on phase 6's factors and
+          alpha basis at (naux, neo) = (2400, 60) (1e-12 relative, one
+          symmetric syrk launch, no plain-version call);
+          get_veff_from_rdm1_emb_sharded on phase 6's lattice and
+          impurity density (1e-10); get_emb_eri_gdf_sharded on phase 9c's
+          factors, both tr_symm (1e-10 relative); ccsd_residual_sharded
+          and ccsd_solve_sharded on phase 9a's spin-orbital integrals (120
+          spin orbitals; E_corr 1e-9, amplitudes 1e-7);
+     17b. entry.dryrun_multichip(4, backend="gloo") in a subprocess: four
+          ranks sharing the card on a 2 x 2 (k, aux) grid, each running
+          the dry run at the JAX package's sizes and the 17a cases at the
+          same widths rebuilt from the NumPy seeds (the CCSD cases at
+          tests/test_parallel.py's nocc = 8, nvir = 6), with one symmetric
+          syrk launch per rank in each sharded ERI call; a rank that fails
+          or hangs fails the phase.
 
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}.
@@ -392,6 +416,10 @@ FMA_STAGE_MS = {"syrk (tri kernel)": 1.544, "syrk ab (cross kernel)": 1.216}
 # H100 SXM data sheet peaks (700 W): FP64 on the tensor cores, HBM3
 PEAK_FP64_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
+
+# PyTorch's intra-op threads at start (the host's cores): main() runs some
+# phases on one thread (see there), the large host GEMMs on these
+HOST_THREADS = torch.get_num_threads()
 
 # gauge-invariant CUDA-vs-CPU tolerances of the main path
 TOL = {"rho_R": 1e-8, "bath projector": 1e-8, "embH1 spectrum": 1e-8,
@@ -792,31 +820,29 @@ def phase_bench(device):
 
 
 def phase_hubbard(device):
-    import libdmet_preview_tpu_torch.dmet.hubbard as dmet
-    from libdmet_preview_tpu_torch.ops.fastpath import make_dmet_iteration
+    """Phase 5 through the port's entry point entry(): its step on the card
+    against the CPU, at its own (p0, rho_target) and at a target that the
+    fit has work on (carried into the fit basis)."""
+    from libdmet_preview_tpu_torch.entry import entry
     from libdmet_preview_tpu_torch.ops.zlinalg import rho_fermi_real
-    ncells, nlo, U, filling = 9, 2, 4.0, 0.5
-    Lat = dmet.ChainLattice(ncells * nlo, nlo)
-    Lat.set_Ham(dmet.Ham(Lat, U), use_hcore_as_emb_ham=True)
-    vcor = dmet.PMInitGuess((nlo,), U, filling)
-    dp = np.random.RandomState(11).randn(len(vcor.param)) * 0.1
-    nelec2 = 2 * (Lat.ncore + Lat.nval)
+    # the flagship's doubled count: 2 (ncore + nval) of its 2-site cell
+    nelec2, neo = 4, 4
 
     def target(embH1_p):
         return np.stack([rho_fermi_real(torch.as_tensor(h), nelec2, BETA)[0]
                          .numpy() for h in embH1_p])
 
-    outs = []
+    outs, own = [], []
     for dev in (device, torch.device("cpu")):
-        step, p0 = make_dmet_iteration(Lat, vcor, filling, beta=BETA,
-                                       fit_max_iter=N_FIT_STEPS,
-                                       engine="lm", device=dev)
-        ph = torch.zeros((1, 2 * nlo, 2 * nlo), dtype=torch.float64,
-                         device=dev)
+        step, (p0, rho_target) = entry(dev)
+        own.append(step(p0, rho_target))
+        dp = np.random.RandomState(11).randn(len(p0)) * 0.1
+        ph = torch.zeros((1, neo, neo), dtype=torch.float64, device=dev)
         tgt = target_in_fit_basis(step, p0, torch.as_tensor(dp, device=dev),
                                   ph, target)
         outs.append(step(p0, tgt))
     torch.cuda.synchronize()
+    compare_steps(own[0], own[1], "hubbard entry()")
     compare_steps(outs[0], outs[1], "hubbard")
 
 
@@ -824,66 +850,14 @@ def phase_hubbard(device):
 # phase 6: one-shot interacting-bath UHF-DMET at the CuO2 AFM plane's width
 # ----------------------------------------------------------------------
 
-# sqrt2 x sqrt2 AFM double cell in the JAX package's tpu-szv basis:
-# 2 Cu x (4s + 6 d) + 4 O x (2s + 2p) = 30 LOs, 25 electrons per formula
-# unit and two formula units per cell; a BvK chain of 8 cells
-AI_NCELLS = 8
-AI_NLO = 30
-AI_NAUX = 2400              # ~10 x nsites: a pivoted-Cholesky rank
-AI_FILLING = 50.0 / 60.0
-AI_DELTA = 2.0              # staggered on-site field on the Cu d shells
-AI_CU_S = [0, 7]            # 4s of Cu A, Cu B
-AI_CU_A_UP = [1, 2, 3]      # d orbitals of Cu A raised for alpha
-AI_CU_B_UP = [8, 9, 10]     # d orbitals of Cu B raised for beta
-AI_O = list(range(14, 30))
+from libdmet_preview_tpu_torch.workloads import (  # noqa: E402
+    AI_FILLING, AI_NAUX, AI_NCELLS, AI_NLO, GDF, _tr_stripe,
+    make_abinitio_workload, make_gdf_workload)
 
 AI_TOL = {"HF E": 1e-8, "HF rho_R": 1e-8, "bath projector": 1e-8,
           "H1 spectrum": 1e-8, "H2 aa (mapped, rel)": 1e-10,
           "H2 bb (mapped, rel)": 1e-10, "H2 ab (mapped, rel)": 1e-10,
           "SCF E": 1e-8, "E per cell": 1e-8, "nelec per cell": 1e-8}
-
-
-def _tr_stripe(rng, ncells, n, scale):
-    """Random time-reversal-symmetric stripe h[R] (h[-R] = h[R]^T),
-    decaying with the cell distance."""
-    h = np.zeros((ncells, n, n))
-    for R in range(ncells // 2 + 1):
-        d = min(R, ncells - R)
-        blk = rng.randn(n, n) * scale / (1.0 + d) ** 2
-        if R == 0 or 2 * R == ncells:
-            blk = 0.5 * (blk + blk.T)
-        h[R] = blk
-        h[(-R) % ncells] = blk.T
-    return h
-
-
-def make_abinitio_workload(seed=5, ncells=AI_NCELLS, nlo=AI_NLO,
-                           naux=AI_NAUX):
-    """hcore/fock per-spin stripes (2, ncells, nlo, nlo), chol_L (naux,
-    nsites, nsites) symmetric in (p, q) with ERI entries O(0.1-1), and
-    the unit-cell ERI, all NumPy from `seed`.  The staggered +-Delta field
-    on the Cu d shells, of opposite sign per spin, opens a gap at 25
-    electrons per spin and cell."""
-    rng = np.random.RandomState(seed)
-    onsite = np.zeros(nlo)
-    onsite[[i for i in AI_O if i < nlo]] = -1.0
-    onsite[[i for i in AI_CU_S if i < nlo]] = 3.0
-    stag = np.zeros(nlo)
-    stag[[i for i in AI_CU_A_UP if i < nlo]] = AI_DELTA
-    stag[[i for i in AI_CU_B_UP if i < nlo]] = -AI_DELTA
-    hop = _tr_stripe(rng, ncells, nlo, 0.1)
-    hcore = np.stack([hop, hop])
-    hcore[0, 0] += np.diag(onsite + stag)
-    hcore[1, 0] += np.diag(onsite - stag)
-    fock = hcore + _tr_stripe(rng, ncells, nlo, 0.05)[None]
-    nsites = ncells * nlo
-    L = np.empty((naux, nsites, nsites))
-    for x0 in range(0, naux, 200):
-        blk = rng.randn(min(200, naux - x0), nsites, nsites)
-        L[x0:x0 + len(blk)] = 0.01 * (blk + blk.transpose(0, 2, 1))
-    L0 = L[:, :nlo, :nlo].reshape(naux, nlo * nlo)
-    eri_imp = (L0.T @ L0).reshape((nlo,) * 4)
-    return hcore, fock, L, eri_imp
 
 
 def _sync(device):
@@ -1067,6 +1041,17 @@ def _quiet():
         yield
     finally:
         log.verbose = level
+
+
+@contextlib.contextmanager
+def _torch_threads(n):
+    """PyTorch's intra-op threads set to n inside the block."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(old)
 
 
 @contextlib.contextmanager
@@ -1638,6 +1623,11 @@ def run_ib_fock(device, size=IB_FOCK["size"], max_iter=IB_FOCK["max_iter"]):
     return rec, conv, sec, fit.FitVcorFull.n_eval
 
 
+# FitVcorFull's iterations on the 40 x 40 lattice: the check is its
+# gradient and its seconds per evaluation, not its end point
+FULL_FIT_ITER = 60
+
+
 def full_fit_check(device, card, size=PDMET["size"]):
     """FitVcorFull once on the pDMET lattice (its HF_scf Fock, the mean
     field's own folded density shifted by a seeded symmetric perturbation
@@ -1673,7 +1663,8 @@ def full_fit_check(device, card, size=PDMET["size"]):
     _sync(device)
     t0 = time.perf_counter()
     _, err0, err1 = fit.FitVcorFull(target, Lat, basis, vcor, beta, filling,
-                                    MaxIter=300, imp_fit=True, BFGS=True)
+                                    MaxIter=FULL_FIT_ITER, imp_fit=True,
+                                    BFGS=True)
     _sync(device)
     dt = time.perf_counter() - t0
     n_eval = fit.FitVcorFull.n_eval
@@ -1832,10 +1823,12 @@ def fci_card_vs_cpu(first, device, card, budget_s):
         na = fci.num_strings(ham["norb"], ne[0])
         c = torch.as_tensor(np.random.RandomState(3).randn(na, na),
                             device=dev)
-        _sync(dev)
-        t0 = time.perf_counter()
-        s = sigma(c)
-        _sync(dev)
+        # the CPU's sigma is large GEMMs: the host's whole pool
+        with _torch_threads(HOST_THREADS):
+            _sync(dev)
+            t0 = time.perf_counter()
+            s = sigma(c)
+            _sync(dev)
         out[dev.type] = (H, solver, s.cpu(), time.perf_counter() - t0)
     rel = float((out["cuda"][2] - out["cpu"][2]).abs().max()
                 / out["cpu"][2].abs().max())
@@ -2045,8 +2038,6 @@ def phase_abinitio_csc(d, c, device, card):
 
 CC_AI = {"tol": 1e-10, "level_shift": 0.0, "max_cycle": 200}
 CC_LOOP = {"U": 2.0, "int_bath": True, "iters": 3, "tol_fci": 1e-3}
-GDF = {"ncells": AI_NCELLS, "nlo": AI_NLO, "nfac": 300, "neo": 2 * AI_NLO,
-       "dense": {"ncells": 6, "nlo": 4, "nfac": 5}}
 GDF_TOL = 1e-10
 
 
@@ -2097,7 +2088,9 @@ def ccsd_detail(solver, ImpHam, device, card, reps=5):
     orbitals: seconds of the spin-orbital assembly, a profiled amplitude
     solve (idle share), ms per residual and per adjoint matvec (CUDA
     events), then the residual and the matvec at those amplitudes on the
-    CPU against the card.  Returns the relative differences."""
+    CPU against the card.  Returns (the relative differences, the idle
+    share, {"h_so", "W", "nocc"}: the spin-orbital integrals, which phase
+    17 reuses)."""
     from libdmet_preview_tpu_torch.solvers import cc as tcc
     from libdmet_preview_tpu_torch.utils.misc import as_f64
     Ca, Cb, na, nb = solver._mo
@@ -2169,7 +2162,7 @@ def ccsd_detail(solver, ImpHam, device, card, reps=5):
         / max(float(torch.max(torch.abs(b))) for b in A_c)}
     print("CCSD detail: on the CPU one residual %.2f s, one adjoint matvec "
           "with its graph %.2f s" % (t_res_c, t_mv_c))
-    return diffs, idle
+    return diffs, idle, {"h_so": h_so, "W": W, "nocc": nocc}
 
 
 def phase_abinitio_ccsd(d, device, card):
@@ -2221,7 +2214,7 @@ def phase_abinitio_ccsd(d, device, card):
                                        + torch.trace(rdm1[1])) - nel), 1e-8),
         "rdm1 asymmetry": (float(torch.max(torch.abs(
             rdm1 - rdm1.transpose(1, 2)))), 1e-12)}
-    diffs, idle = ccsd_detail(solver, ImpHam, device, card)
+    diffs, idle, cc_ints = ccsd_detail(solver, ImpHam, device, card)
     checks.update({"cuda vs cpu " + k: (v, 1e-10) for k, v in diffs.items()})
     bad = []
     for k, (v, tol) in checks.items():
@@ -2240,7 +2233,7 @@ def phase_abinitio_ccsd(d, device, card):
         bad.append("energy or shape")
     if bad:
         raise AssertionError("abinitio CCSD failed: %s" % bad)
-    return launches, r["E"]
+    return launches, r["E"], cc_ints
 
 
 def phase_ccsd_loop(device, card, fci_res):
@@ -2282,44 +2275,6 @@ def phase_ccsd_loop(device, card, fci_res):
                                       "rho_imp"], LOOP_TOL), REPLAY)
 
 
-def make_gdf_workload(device, seed=13, ncells=GDF["ncells"], nlo=GDF["nlo"],
-                      nfac=GDF["nfac"]):
-    """A translation-invariant ERI in factorized form, with no dense
-    tensor: nfac random symmetric real-space factors l_x (nsites, nsites)
-    that decay with the cell distance, NumPy from `seed`, and all ncells
-    translations of each.  Returns (L, factors): the Cholesky vectors L
-    (nfac * ncells, nsites, nsites) and the k-resolved factors {q: (F_re,
-    F_im)} that follow analytically, F_q[k, p, a, x] = lt_x[k p, (k + q) a]
-    / sqrt(ncells) with lt_x the double Fourier transform of l_x
-    (make_gdf_factors' convention), tensors on `device`.  The gamma-like
-    block F_0[0] is made exactly real-symmetric."""
-    from libdmet_preview_tpu_torch.ops.eri_transform import _dft_phase
-    rng = np.random.RandomState(seed)
-    nsites = ncells * nlo
-    dist = np.abs(np.arange(ncells)[:, None] - np.arange(ncells)[None, :])
-    decay = 1.0 / (1.0 + np.minimum(dist, ncells - dist)) ** 2
-    l = rng.randn(nfac, nsites, nsites)
-    l = (0.01 * (l + l.transpose(0, 2, 1))).reshape(nfac, ncells, nlo,
-                                                    ncells, nlo)
-    l5 = torch.as_tensor(l * decay[None, :, None, :, None], device=device)
-    L = torch.cat([torch.roll(l5, (R, R), dims=(1, 3))
-                   for R in range(ncells)]).reshape(-1, nsites, nsites)
-    P = _dft_phase(ncells, device)
-    lt = torch.einsum("kA, xApBq -> xkpBq", P, l5.to(torch.complex128))
-    lt = torch.einsum("lB, xkpBq -> xkplq", P.conj(), lt)
-    k = torch.arange(ncells, device=device)
-    factors = {}
-    for q in range(ncells):
-        F = lt[:, k, :, (k + q) % ncells, :]           # (k, x, p, a)
-        F = F.permute(0, 2, 3, 1) / np.sqrt(ncells)
-        F_re, F_im = F.real.contiguous(), F.imag.contiguous()
-        if q == 0:
-            F_re[0] = 0.5 * (F_re[0] + F_re[0].transpose(0, 1))
-            F_im[0] = 0.0
-        factors[q] = (F_re, F_im)
-    return L, factors
-
-
 def _stripe_density(rng, ncells, n, spin):
     """A real stripe with st[-R] = st[R]^T and its supercell matrix
     (spin, nsites, nsites), block (ci, cj) = st[ci - cj]."""
@@ -2349,7 +2304,7 @@ def gdf_against_cholesky(device, ncells=GDF["ncells"], nlo=GDF["nlo"],
     """get_emb_eri_gdf and get_jk_from_gdf on `device` from the analytic
     factors against get_emb_eri_chol and J, K einsums over the Cholesky
     vectors of the same integrals.  Returns (relative differences, the
-    results, the factors)."""
+    results, the factors, the seconds, the basis carried to k)."""
     from libdmet_preview_tpu_torch.ops import fourier
     from libdmet_preview_tpu_torch.ops.eri_transform import (
         _dft_phase, get_emb_eri_chol, get_emb_eri_gdf, get_emb_eri_gso_chol,
@@ -2402,7 +2357,7 @@ def gdf_against_cholesky(device, ncells=GDF["ncells"], nlo=GDF["nlo"],
                                     device=device), device, reps)
     diffs["get_emb_eri_gso_gdf vs gso chol"] = float(
         torch.max(torch.abs(out["gso"] - ref)) / torch.max(torch.abs(ref)))
-    return diffs, out, factors, sec
+    return diffs, out, factors, sec, basis_k
 
 
 def phase_gdf(device, card):
@@ -2413,7 +2368,7 @@ def phase_gdf(device, card):
     from libdmet_preview_tpu_torch.ops.eri_transform import make_gdf_factors
     ncells, nlo = GDF["ncells"], GDF["nlo"]
     syrk_df.launches = 0
-    diffs, out_d, factors, sec = gdf_against_cholesky(device)
+    diffs, out_d, factors, sec, basis_k = gdf_against_cholesky(device)
     launches = syrk_df.launches
     nbytes = sum(f[0].numel() * 16 for f in factors.values())
     print("GDF [%s]: %d cells x %d LOs, %d factors per transfer, %.1f MB of "
@@ -2425,27 +2380,11 @@ def phase_gdf(device, card):
     for k, v in sec.items():
         print("GDF [%s]: %-32s %.6f s per call (best of 3)" % (card, k, v))
     # the CPU side once per call (its times are not reported)
-    diffs_c, out_c, _, _ = gdf_against_cholesky(torch.device("cpu"), reps=1)
+    diffs_c, out_c = gdf_against_cholesky(torch.device("cpu"), reps=1)[:2]
     for k in out_d:
         diffs["cuda vs cpu " + k] = float(
             torch.max(torch.abs(out_d[k].cpu() - out_c[k]))
             / torch.max(torch.abs(out_c[k])))
-    # the CDERI archive, written and read back
-    host = interop.gdf_factors_to_numpy(factors)
-    kpts_scaled = np.asarray([[0.0, 0.0, f] for f in np.fft.fftfreq(ncells)])
-    kpts = 2.0 * np.pi * kpts_scaled / 7.3
-    with tempfile.TemporaryDirectory() as tmp:
-        fname = os.path.join(tmp, "cderi.npz")
-        t0 = time.perf_counter()
-        write_cderi(fname, host, kpts, kpts_scaled, nlo)
-        t1 = time.perf_counter()
-        back = read_cderi(fname, kpts, kpts_scaled, nlo)
-        t2 = time.perf_counter()
-        size = os.path.getsize(fname)
-    same = all(np.array_equal(back[q][i], host[q][i])
-               for q in host for i in (0, 1))
-    print("GDF: CDERI archive %.1f MB, write %.2f s, read %.2f s, "
-          "bit-identical: %s" % (size / 1e6, t1 - t0, t2 - t1, same))
     # the analytic factors' convention against make_gdf_factors' own
     small = GDF["dense"]
     nc, n = small["ncells"], small["nlo"]
@@ -2460,6 +2399,19 @@ def phase_gdf(device, card):
         worst = max(worst, float(torch.max(torch.abs(Ma - Mm))
                                  / torch.max(torch.abs(Mm))))
     diffs["dense case: M_q analytic vs make_gdf_factors"] = worst
+    # the CDERI archive of the dense case's factors, written and read back
+    host = interop.gdf_factors_to_numpy(fa)
+    kpts_scaled = np.asarray([[0.0, 0.0, f] for f in np.fft.fftfreq(nc)])
+    kpts = 2.0 * np.pi * kpts_scaled / 7.3
+    with tempfile.TemporaryDirectory() as tmp:
+        fname = os.path.join(tmp, "cderi.npz")
+        write_cderi(fname, host, kpts, kpts_scaled, n)
+        back = read_cderi(fname, kpts, kpts_scaled, n)
+        size = os.path.getsize(fname)
+    same = all(np.array_equal(back[q][i], host[q][i])
+               for q in host for i in (0, 1))
+    print("GDF: CDERI archive of the dense case (%d cells x %d LOs) %.3f MB, "
+          "bit-identical: %s" % (nc, n, size / 1e6, same))
     for k, v in diffs.items():
         print("GDF: %-52s %.3e (tol %.0e)" % (k, v, GDF_TOL))
     bad = [k for k, v in diffs.items() if not v <= GDF_TOL]
@@ -2470,6 +2422,7 @@ def phase_gdf(device, card):
         bad.append("launches or shapes")
     if bad:
         raise AssertionError("GDF phase failed: %s" % bad)
+    return factors, basis_k, ncells, nlo
 
 
 # ----------------------------------------------------------------------
@@ -5155,9 +5108,9 @@ def _oxide_against_records(label, kind, res, bad):
 def _oxide_cpu_replay(Lat, meta, kind, res, label, card, bad):
     """The embedding step on the CPU: the same lattice's operators and
     factors moved to a CPU lattice (ChainLattice.set_Ham_abinitio on
-    device=cpu), then the mean field, ConstructImpHam and the impurity
-    UHF there (not the build); gauge-invariant quantities against the
-    card's (1e-8)."""
+    device=cpu), then the mean field and ConstructImpHam there (not the
+    build; not the impurity UHF, whose card-vs-CPU check is phase 6's at
+    neo = 60); gauge-invariant quantities against the card's (1e-8)."""
     from libdmet_preview_tpu_torch import workloads as wl
     from libdmet_preview_tpu_torch.models.lattice import ChainLattice
     cpu = torch.device("cpu")
@@ -5166,7 +5119,7 @@ def _oxide_cpu_replay(Lat, meta, kind, res, label, card, bad):
     Lat_c.set_Ham_abinitio(Lat.Ham, rdm1=Lat.rdm1_lo_R, device=cpu)
     Lat_c.set_val_virt_core(nlo, 0, 0)
     t0 = time.perf_counter()
-    rc = wl.oxide_one_shot(Lat_c, meta, kind, cpu, mp2=False)
+    rc = wl.oxide_one_shot(Lat_c, meta, kind, cpu, mp2=False, solve=False)
     print("%s CPU replay of the embedding step: %.2f s"
           % (label, time.perf_counter() - t0))
 
@@ -5177,8 +5130,6 @@ def _oxide_cpu_replay(Lat, meta, kind, res, label, card, bad):
     H1d, H1c = res["ImpHam"].H1["cd"], rc["ImpHam"].H1["cd"]
     checks = {"card - CPU E_mf": (res["E_mf"] - rc["E_mf"],
                                   OXIDE_TOL["card vs CPU"]),
-              "card - CPU E_ibhf": (res["E_ibhf"] - rc["E_ibhf"],
-                                    OXIDE_TOL["card vs CPU"]),
               "card - CPU H1_emb spectrum": (
                   float((spectrum(H1d) - spectrum(H1c)).abs().max()),
                   OXIDE_TOL["card vs CPU"]),
@@ -5328,6 +5279,106 @@ def _phase_oxides(device, card, nk, precision, cache):
     return tri, cross, max(e1, e2), at
 
 
+# ----------------------------------------------------------------------
+# phase 17: the scale-out layer (parallel/kmesh, parallel/dryrun)
+# ----------------------------------------------------------------------
+
+SCALE_OUT = {"ranks": 4, "timeout": 900}
+
+
+def _print_kmesh_cases(label, card, res):
+    for k, v in res["errors"].items():
+        print("%s [%s]: %-30s %.3e" % (label, card, k, v))
+
+
+def phase_scale_out_inprocess(device, card, prebuilt):
+    """17a: an NCCL group of one rank (HashStore) in this process; every
+    kmesh function at full width on the card against the serial port path
+    (workloads.kmesh_cases at "card": SquareLattice(40, 40, 2, 2) rebuilt
+    from its seeds, phase 6's lattice, factors, alpha basis and impurity
+    density, phase 9c's GDF factors, phase 9a's spin-orbital integrals).
+    Returns the symmetric syrk launches of the sharded ERI call (on a CPU
+    device the group is gloo's: a rehearsal)."""
+    import datetime
+    import torch.distributed as dist
+    from libdmet_preview_tpu_torch import workloads as wl
+    from libdmet_preview_tpu_torch.parallel import kmesh
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                            world_size=1,
+                            timeout=datetime.timedelta(seconds=600))
+    try:
+        mesh = kmesh.make_mesh((1, 1), ("k", "aux"), device)
+        _sync(device)
+        t0 = time.perf_counter()
+        res = wl.kmesh_cases(mesh, "card", prebuilt=prebuilt)
+        _sync(device)
+        sec = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    _print_kmesh_cases("17a 1 NCCL rank", card, res)
+    print("17a 1 NCCL rank [%s]: every kmesh case in %.2f s; sharded ERI at "
+          "(naux, neo) = (%d, %d): %d tri launches, %d plain-version calls "
+          "on CUDA tensors; sharded CCSD %d iterations"
+          % (card, sec, prebuilt["abinitio"][0].getH2().shape[0],
+             prebuilt["abinitio"][1].shape[-1], res["launches"],
+             res["plain_cuda"], kmesh.ccsd_solve_sharded.last["iterations"]))
+    return res["launches"]
+
+
+def phase_scale_out_ranks(device, card):
+    """17b: entry.dryrun_multichip(4, backend="gloo") on the card: four
+    ranks sharing it on a 2 x 2 (k, aux) grid, each running the dry run at
+    the JAX package's sizes and workloads.kmesh_cases at the card's
+    widths, rebuilt from the seeds on every rank (the CCSD cases at
+    tests/test_parallel.py's nocc = 8, nvir = 6), each against the serial
+    port path on its rank; then the symmetric kernel at a rank's shard of
+    phase 6's factors, (naux / 2, neo), timed.  Returns (the symmetric
+    syrk launches of the sharded ERI calls summed over the ranks, the
+    maximum error of the kernel there, its record for the kernels
+    line)."""
+    from libdmet_preview_tpu_torch.entry import dryrun_multichip
+    n = SCALE_OUT["ranks"]
+    t0 = time.perf_counter()
+    out = dryrun_multichip(n, backend="gloo", device="cuda", cases="card",
+                           timeout=SCALE_OUT["timeout"])
+    sec = time.perf_counter() - t0
+    ranks = out["dryrun"]["ranks"]
+    launches, bad = 0, []
+    for r in ranks:
+        it, cases = r["iteration"], r["cases"]
+        launches += it["eri_launches"] + cases["launches"]
+        print("17b rank %d of %d (gloo, %s) [%s]: dry run mesh %s E_mf %.10f "
+              "E_imp %.10f nelec_imp %.10f fit_err %.6e, deviations mf %.1e "
+              "h1 %.1e eri %.1e; worst kmesh case %s %.3e; tri launches %d "
+              "(dry run) + %d (cases), plain-version calls on CUDA %d"
+              % (r["rank"], n, r["device"], card, it["mesh"], it["E_mf"],
+                 it["E_imp"], it["nelec_imp"], it["fit_err"], it["err_mf"],
+                 it["err_h1"], it["err_eri"],
+                 *max(cases["errors"].items(), key=lambda kv: kv[1]),
+                 it["eri_launches"], cases["launches"], cases["plain_cuda"]))
+        if it["eri_launches"] != 1 or cases["launches"] != 1 \
+                or cases["plain_cuda"] or it["mesh"] != [n // 2, 2]:
+            bad.append("rank %d launches or mesh" % r["rank"])
+    ref = ranks[0]["iteration"]
+    for r in ranks[1:]:
+        for k in ("E_mf", "E_imp", "nelec_imp", "fit_err"):
+            if abs(r["iteration"][k] - ref[k]) > 1e-12:
+                bad.append("rank %d %s differs from rank 0" % (r["rank"], k))
+    print("17b %d gloo ranks sharing the card [%s]: %.1f s in all (the "
+          "subprocess, its %d ranks' start, their inputs and cases)"
+          % (n, card, sec, n))
+    if bad or len(ranks) != n:
+        raise AssertionError("17b failed: %s" % bad)
+    shape = (AI_NAUX // 2, 2 * AI_NLO)
+    err, ms, plain_ms, bound, by = tri_kernel_at(shape, device, card)
+    return launches, err, {
+        "shape": list(shape), "launches": n, "ms": ms, "plain_ms": plain_ms,
+        "library_ms": plain_ms, "bound_ms": bound, "bound_by": by}
+
+
 def main():
     t_start = time.perf_counter()
     last = [t_start]
@@ -5352,7 +5403,8 @@ def main():
     launches_ai, run_d, run_c = phase_abinitio_uhf(device)
     _tick("6 abinitio uhf")
     with _quiet():
-        launches_cc, E_ccsd = phase_abinitio_ccsd(run_d, device, card)
+        launches_cc, E_ccsd, cc_ints = phase_abinitio_ccsd(run_d, device,
+                                                           card)
         _tick("9a ccsd")
         t12 = time.perf_counter()
         launches_cas = phase_abinitio_cas(run_d, device, card, E_ccsd)
@@ -5367,37 +5419,47 @@ def main():
                                                            device, card)
         launches_csc = phase_abinitio_csc(run_d, run_c, device, card)
         _tick("10c gso + 8d csc")
-        del run_d, run_c
-        hub2d = phase_dmet_loop_hubbard(device, card)
-        _tick("7a hubbard loops")
-        phase_ccsd_loop(device, card, hub2d["IB U=2"])
-        _tick("9b ccsd loop")
-        phase_gdf(device, card)
+        # phase 17a reuses phase 6's lattice, basis and impurity density
+        # and phase 9a's spin-orbital integrals
+        keep17 = {"abinitio": (run_d["Lat"], run_d["basis"], run_d["rdm1"]),
+                  "ccsd": cc_ints}
+        del run_d, run_c, cc_ints
+        # the phases of small host operations run PyTorch's CPU work on
+        # one thread beside the rows' native threads: its intra-op pool,
+        # spinning against them, made their CPU replays 9-26x slower
+        # (scripts/replay_contention.py); the phases of large host GEMMs
+        # (10c, 8d csc, 9c, 13, 14) keep the pool (PERF.md section 4)
+        with _torch_threads(1):
+            hub2d = phase_dmet_loop_hubbard(device, card)
+            _tick("7a hubbard loops")
+            phase_ccsd_loop(device, card, hub2d["IB U=2"])
+            _tick("9b ccsd loop")
+        keep17["gdf"] = phase_gdf(device, card)
         _tick("9c gdf")
-        launches_chol, err_chol, times_chol = phase_dmet_loop_cholesky(
-            device, card)
-        _tick("7b cholesky loop")
-        phase_pdmet(device, card)
-        _tick("8a pdmet")
-        phase_ib_fock(device, card)
-        _tick("8b ib fock")
-        phase_nearest(device, card)
-        _tick("8d nearest")
-        phase_three_band(device, card)
-        _tick("8c three band")
-        phase_dwave(device, card)
-        _tick("10a dwave")
-        phase_doped(device, card)
-        _tick("10b doped")
-        launches_hchain, err_hchain, at_hchain = phase_abinitio_lattices(
-            device, card)
-        _tick("11 abinitio lattices")
-        t0 = time.perf_counter()
-        phase_cas_oracles(device, card)
-        _tick("12a cas oracles")
-        launches_hchain_cas = phase_hchain_cas(device, card, ints_hchain())
-        _tick("12c hchain cas")
-        t12 += time.perf_counter() - t0
+        with _torch_threads(1):
+            launches_chol, err_chol, times_chol = phase_dmet_loop_cholesky(
+                device, card)
+            _tick("7b cholesky loop")
+            phase_pdmet(device, card)
+            _tick("8a pdmet")
+            phase_ib_fock(device, card)
+            _tick("8b ib fock")
+            phase_nearest(device, card)
+            _tick("8d nearest")
+            phase_three_band(device, card)
+            _tick("8c three band")
+            phase_dwave(device, card)
+            _tick("10a dwave")
+            launches_hchain, err_hchain, at_hchain = phase_abinitio_lattices(
+                device, card)
+            _tick("11 abinitio lattices")
+            t0 = time.perf_counter()
+            phase_cas_oracles(device, card)
+            _tick("12a cas oracles")
+            launches_hchain_cas = phase_hchain_cas(device, card,
+                                                   ints_hchain())
+            _tick("12c hchain cas")
+            t12 += time.perf_counter() - t0
         t13 = time.perf_counter()
         launches_dft, err_dft, at_dft = phase_dft(device, card)
         _tick("13 dft")
@@ -5406,6 +5468,15 @@ def main():
         launches_pbc, err_pbc, at_pbc = phase_pbc(device, card)
         _tick("14 pbc")
         t14 = time.perf_counter() - t14
+        # 10b's CPU replay (FCI sigma builds, 30-47 s) after the rows are
+        # made: beside them it took 71.5-107.3 s (PERF.md section 4);
+        # phase 15 waits for them anyway
+        t0 = time.perf_counter()
+        diamond_rows.thread.join()
+        print("10b waited %.2f s for phase 15's rows"
+              % (time.perf_counter() - t0))
+        phase_doped(device, card)
+        _tick("10b doped")
         t15 = time.perf_counter()
         launches_diamond, err_diamond, at_diamond = phase_diamond(
             device, card, diamond_rows)
@@ -5415,9 +5486,16 @@ def main():
         tri_ox, cross_ox, err_ox, at_ox = phase_oxides(device, card)
         _tick("16 oxides")
         t16 = time.perf_counter() - t16
+        t17 = time.perf_counter()
+        launches_17a = phase_scale_out_inprocess(device, card, keep17)
+        del keep17
+        _tick("17a scale-out 1 rank")
+        launches_17b, err_17, at_17 = phase_scale_out_ranks(device, card)
+        _tick("17b scale-out 4 ranks")
+        t17 = time.perf_counter() - t17
     max_abs["syrk_df"] = max(max_abs["syrk_df"], err_chol, err_gso,
                              err_hchain, err_dft, err_pbc, err_diamond,
-                             err_ox)
+                             err_ox, err_17)
     max_abs["syrk_df_cross"] = max(max_abs["syrk_df_cross"], err_ox)
     print("card: %s" % card)
     naux, neo = PATH_SHAPE
@@ -5436,7 +5514,9 @@ def main():
               "hchain_cas": launches_hchain_cas,
               "dft_in_dmet": launches_dft,
               "pbc_hchain": launches_pbc,
-              "diamond": launches_diamond, **tri_ox}),
+              "diamond": launches_diamond, **tri_ox,
+              "scale_out_1rank": launches_17a,
+              "scale_out_4ranks": launches_17b}),
             ("syrk_df_cross", "cross",
              "libdmet_preview_tpu/ops/pallas_eri.py:45",
              {"abinitio_uhf": launches_ai["syrk_df_cross"],
@@ -5482,13 +5562,16 @@ def main():
     kernels[0]["at_pbc_hchain_full_shape"] = at_pbc
     # ... and the shape the nk = 2 diamond chain gives it (phase 15)
     kernels[0]["at_diamond_shape"] = at_diamond
+    # ... and the shape of a rank's aux shard on the scale-out grid (17b)
+    kernels[0]["at_scale_out_shard_shape"] = at_17
     # ... and both kernels at the shape the oxides' interacting bath gives
     # them (phase 16)
     kernels[0]["at_oxide_shape"] = at_ox["tri"]
     kernels[1]["at_oxide_shape"] = at_ox["cross"]
     print("chip_smoke total: %.1f s, of it phase 12 %.1f s, phase 13 %.1f s, "
-          "phase 14 %.1f s, phase 15 %.1f s, phase 16 %.1f s [%s]"
-          % (time.perf_counter() - t_start, t12, t13, t14, t15, t16, card))
+          "phase 14 %.1f s, phase 15 %.1f s, phase 16 %.1f s, phase 17 %.1f "
+          "s [%s]" % (time.perf_counter() - t_start, t12, t13, t14, t15, t16,
+                      t17, card))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,5 +20,4 @@ from libdmet_preview_tpu_torch import dmet  # noqa: F401
 from libdmet_preview_tpu_torch import solvers  # noqa: F401
 from libdmet_preview_tpu_torch import lo  # noqa: F401
 from libdmet_preview_tpu_torch import ints  # noqa: F401
-# parallel/ (the JAX package's k-point mesh) comes with the scale-out
-# slice and has no port yet
+from libdmet_preview_tpu_torch import parallel  # noqa: F401

@@ -115,6 +115,38 @@ def _safe_inv(denom):
         torch.zeros_like(denom))
 
 
+def _zrho_eig(h_re, h_im, nelec2, beta, weights=None, gather=None):
+    """The forward of the Fermi density: (ew, V, mu, occ, rho) with rho =
+    V f(ew - mu) V^H of the complex eigh of H = h_re + i h_im.  gather maps
+    the spectrum to the one mu is counted on (parallel.kmesh: every rank's
+    k shard)."""
+    ew, V = torch.linalg.eigh(torch.complex(h_re, h_im))
+    mu = _bisect_mu(ew if gather is None else gather(ew), 0.5 * nelec2,
+                    beta, weights=weights)
+    occ = _fermi(ew, mu, beta)
+    rho = (V * occ[..., None, :].to(V.dtype)) @ V.mH
+    return ew, V, mu, occ, rho
+
+
+def _zrho_vjp(ew, V, mu, beta, w_re, w_im, w_mu, weights=None, reduce=None):
+    """The backward of the Fermi density (the formula of _ZRhoFermi);
+    reduce sums the two k sums of the mu feedback over the k points held
+    elsewhere (parallel.kmesh).  Returns (gh_re, gh_im)."""
+    f, K = _fermi_K(ew, mu, beta)
+    fp = -beta * f * (1.0 - f)
+    wfp = fp if weights is None else weights[..., None] * fp
+    We = V.mH @ torch.complex(w_re, w_im) @ V
+    sums = torch.stack([
+        torch.sum(torch.diagonal(We, dim1=-2, dim2=-1).real * fp),
+        torch.sum(wfp)])
+    if reduce is not None:
+        sums = reduce(sums)
+    diag_coeff = (w_mu - sums[0]) * _safe_inv(sums[1])
+    Mct = K * We + torch.diag_embed(wfp * diag_coeff)
+    G = V @ Mct @ V.mH
+    return G.real, G.imag
+
+
 class _ZRhoFermi(torch.autograd.Function):
     """rho = f_beta(H - mu) of the Hermitian batch H = h_re + i h_im at a
     fixed (optionally k-weighted) electron count, as one differentiable op.
@@ -133,10 +165,7 @@ class _ZRhoFermi(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, h_re, h_im, nelec2, beta, weights):
-        ew, V = torch.linalg.eigh(torch.complex(h_re, h_im))
-        mu = _bisect_mu(ew, 0.5 * nelec2, beta, weights=weights)
-        occ = _fermi(ew, mu, beta)
-        rho = (V * occ[..., None, :].to(V.dtype)) @ V.mH
+        ew, V, mu, _, rho = _zrho_eig(h_re, h_im, nelec2, beta, weights)
         ctx.beta = beta
         ctx.weights = weights
         ctx.save_for_backward(ew, V, mu)
@@ -145,17 +174,9 @@ class _ZRhoFermi(torch.autograd.Function):
     @staticmethod
     def backward(ctx, w_re, w_im, w_mu):
         ew, V, mu = ctx.saved_tensors
-        beta, weights = ctx.beta, ctx.weights
-        f, K = _fermi_K(ew, mu, beta)
-        fp = -beta * f * (1.0 - f)
-        wfp = fp if weights is None else weights[..., None] * fp
-        We = V.mH @ torch.complex(w_re, w_im) @ V
-        trace_term = torch.sum(
-            torch.diagonal(We, dim1=-2, dim2=-1).real * fp)
-        diag_coeff = (w_mu - trace_term) * _safe_inv(torch.sum(wfp))
-        Mct = K * We + torch.diag_embed(wfp * diag_coeff)
-        G = V @ Mct @ V.mH
-        return G.real, G.imag, None, None, None
+        g_re, g_im = _zrho_vjp(ew, V, mu, ctx.beta, w_re, w_im, w_mu,
+                               ctx.weights)
+        return g_re, g_im, None, None, None
 
 
 def zrho_fermi_w(h_re, h_im, nelec2, beta, weights):

@@ -1533,7 +1533,7 @@ def oxide_lattice(kind, device, **kwargs):
     return getattr(abinitio, OXIDE_FACTORIES[kind])(device=device, **kwargs)
 
 
-def oxide_one_shot(Lat, meta, kind, device, mp2=None):
+def oxide_one_shot(Lat, meta, kind, device, mp2=None, solve=True):
     """tests/test_nio_afm.py:35-149 / tests/test_cuo2_afm.py:27-72 at vcor
     = 0: the lattice mean field (HartreeFock; the FM state at its
     spin-resolved filling), ConstructImpHam(matching=True, int_bath=True),
@@ -1541,7 +1541,8 @@ def oxide_one_shot(Lat, meta, kind, device, mp2=None):
     mean-field density -> transformResults (the IB-HF identity) and, with
     mp2 (default: NiO AFM), MP2(restricted=False) -> transformResults.
     Energies per cell; also the pieces (ImpHam, basis, H1e, rho_mf, and the
-    lattice density rho and vcor ConstructImpHam took)."""
+    lattice density rho and vcor ConstructImpHam took).  solve=False stops
+    after ConstructImpHam (no impurity solver)."""
     import libdmet_preview_tpu_torch.dmet.hubbard as dmet
     from libdmet_preview_tpu_torch.ops import embham
     from libdmet_preview_tpu_torch.ops.vcor import VcorLocal
@@ -1572,6 +1573,8 @@ def oxide_one_shot(Lat, meta, kind, device, mp2=None):
            "H1e": H1e, "rho_mf": rho_mf, "rho": rho, "vcor": vcor}
     if na is not None:
         out["nelec_ab"] = [int(na), int(nb)]
+    if not solve:
+        return out
     hf = SCFSolver(restricted=False, Sz=sz, device=device)
     with stage("impurity UHF", device):
         rhoEmb, EEmb = hf.run(ImpHam, nelec=nel, dm0=rho_mf, MaxIter=500)
@@ -1589,3 +1592,476 @@ def oxide_one_shot(Lat, meta, kind, device, mp2=None):
                                         solver_args={"nelec": nel})
         out["E_mp2"] = float(E) * nsc
     return out
+
+
+# ----------------------------------------------------------------------
+# the ab initio one-shot workload of chip_smoke.py phase 6 (the width of
+# the CuO2 AFM plane) and the GDF workload of phase 9c; phase 17's
+# scale-out cases rebuild them on every rank from the same seeds
+# ----------------------------------------------------------------------
+
+# sqrt2 x sqrt2 AFM double cell in the JAX package's tpu-szv basis:
+# 2 Cu x (4s + 6 d) + 4 O x (2s + 2p) = 30 LOs, 25 electrons per formula
+# unit and two formula units per cell; a BvK chain of 8 cells
+AI_NCELLS = 8
+AI_NLO = 30
+AI_NAUX = 2400              # ~10 x nsites: a pivoted-Cholesky rank
+AI_FILLING = 50.0 / 60.0
+AI_DELTA = 2.0              # staggered on-site field on the Cu d shells
+AI_CU_S = [0, 7]            # 4s of Cu A, Cu B
+AI_CU_A_UP = [1, 2, 3]      # d orbitals of Cu A raised for alpha
+AI_CU_B_UP = [8, 9, 10]     # d orbitals of Cu B raised for beta
+AI_O = list(range(14, 30))
+
+
+def _tr_stripe(rng, ncells, n, scale):
+    """Random time-reversal-symmetric stripe h[R] (h[-R] = h[R]^T),
+    decaying with the cell distance."""
+    h = np.zeros((ncells, n, n))
+    for R in range(ncells // 2 + 1):
+        d = min(R, ncells - R)
+        blk = rng.randn(n, n) * scale / (1.0 + d) ** 2
+        if R == 0 or 2 * R == ncells:
+            blk = 0.5 * (blk + blk.T)
+        h[R] = blk
+        h[(-R) % ncells] = blk.T
+    return h
+
+
+def make_abinitio_workload(seed=5, ncells=AI_NCELLS, nlo=AI_NLO,
+                           naux=AI_NAUX):
+    """hcore/fock per-spin stripes (2, ncells, nlo, nlo), chol_L (naux,
+    nsites, nsites) symmetric in (p, q) with ERI entries O(0.1-1), and
+    the unit-cell ERI, all NumPy from `seed`.  The staggered +-Delta field
+    on the Cu d shells, of opposite sign per spin, opens a gap at 25
+    electrons per spin and cell."""
+    rng = np.random.RandomState(seed)
+    onsite = np.zeros(nlo)
+    onsite[[i for i in AI_O if i < nlo]] = -1.0
+    onsite[[i for i in AI_CU_S if i < nlo]] = 3.0
+    stag = np.zeros(nlo)
+    stag[[i for i in AI_CU_A_UP if i < nlo]] = AI_DELTA
+    stag[[i for i in AI_CU_B_UP if i < nlo]] = -AI_DELTA
+    hop = _tr_stripe(rng, ncells, nlo, 0.1)
+    hcore = np.stack([hop, hop])
+    hcore[0, 0] += np.diag(onsite + stag)
+    hcore[1, 0] += np.diag(onsite - stag)
+    fock = hcore + _tr_stripe(rng, ncells, nlo, 0.05)[None]
+    nsites = ncells * nlo
+    L = np.empty((naux, nsites, nsites))
+    for x0 in range(0, naux, 200):
+        blk = rng.randn(min(200, naux - x0), nsites, nsites)
+        L[x0:x0 + len(blk)] = 0.01 * (blk + blk.transpose(0, 2, 1))
+    L0 = L[:, :nlo, :nlo].reshape(naux, nlo * nlo)
+    eri_imp = (L0.T @ L0).reshape((nlo,) * 4)
+    return hcore, fock, L, eri_imp
+
+
+
+GDF = {"ncells": AI_NCELLS, "nlo": AI_NLO, "nfac": 300, "neo": 2 * AI_NLO,
+       "dense": {"ncells": 6, "nlo": 4, "nfac": 5}}
+
+def make_gdf_workload(device, seed=13, ncells=GDF["ncells"], nlo=GDF["nlo"],
+                      nfac=GDF["nfac"]):
+    """A translation-invariant ERI in factorized form, with no dense
+    tensor: nfac random symmetric real-space factors l_x (nsites, nsites)
+    that decay with the cell distance, NumPy from `seed`, and all ncells
+    translations of each.  Returns (L, factors): the Cholesky vectors L
+    (nfac * ncells, nsites, nsites) and the k-resolved factors {q: (F_re,
+    F_im)} that follow analytically, F_q[k, p, a, x] = lt_x[k p, (k + q) a]
+    / sqrt(ncells) with lt_x the double Fourier transform of l_x
+    (make_gdf_factors' convention), tensors on `device`.  The gamma-like
+    block F_0[0] is made exactly real-symmetric."""
+    from libdmet_preview_tpu_torch.ops.eri_transform import _dft_phase
+    rng = np.random.RandomState(seed)
+    nsites = ncells * nlo
+    dist = np.abs(np.arange(ncells)[:, None] - np.arange(ncells)[None, :])
+    decay = 1.0 / (1.0 + np.minimum(dist, ncells - dist)) ** 2
+    l = rng.randn(nfac, nsites, nsites)
+    l = (0.01 * (l + l.transpose(0, 2, 1))).reshape(nfac, ncells, nlo,
+                                                    ncells, nlo)
+    l5 = torch.as_tensor(l * decay[None, :, None, :, None], device=device)
+    L = torch.cat([torch.roll(l5, (R, R), dims=(1, 3))
+                   for R in range(ncells)]).reshape(-1, nsites, nsites)
+    P = _dft_phase(ncells, device)
+    lt = torch.einsum("kA, xApBq -> xkpBq", P, l5.to(torch.complex128))
+    lt = torch.einsum("lB, xkpBq -> xkplq", P.conj(), lt)
+    k = torch.arange(ncells, device=device)
+    factors = {}
+    for q in range(ncells):
+        F = lt[:, k, :, (k + q) % ncells, :]           # (k, x, p, a)
+        F = F.permute(0, 2, 3, 1) / np.sqrt(ncells)
+        F_re, F_im = F.real.contiguous(), F.imag.contiguous()
+        if q == 0:
+            F_re[0] = 0.5 * (F_re[0] + F_re[0].transpose(0, 1))
+            F_im[0] = 0.0
+        factors[q] = (F_re, F_im)
+    return L, factors
+
+
+# ----------------------------------------------------------------------
+# the scale-out cases (parallel/kmesh): every sharded function against the
+# serial port path on each rank's device, at a Tier-1 size (held to the
+# JAX package by tests/test_torch_parallel.py) or at the card's widths
+# (chip_smoke.py phase 17: SquareLattice(40, 40, 2, 2), phase 6's factors
+# and lattice, phase 9c's GDF factors)
+# ----------------------------------------------------------------------
+
+KMESH_MODEL = {"imp": (2, 2), "U": 4.0, "filling": 0.5, "beta": 1000.0,
+               "seed": 31}
+KMESH_SIZES = {
+    # square: the model lattice; chol: (ncells, nlo, naux, neo) of random
+    # factors (None: phase 6's); veff: (ncells, nlo, naux, neo) of a small
+    # phase-6 workload (None: phase 6's); gdf: (ncells, nlo, nfac, neo)
+    # (None: phase 9c's); ccsd: (nocc, nvir) of tests/test_parallel.py's
+    # solve's problem (the residual's is always its (8, 4))
+    "tier1": {"square": (4, 4), "neo": 4, "chol": (2, 3, 16, 4),
+              "veff": (2, 3, 5, 4), "gdf": (3, 3, 5, 4), "ccsd": (8, 6)},
+    "card": {"square": (40, 40), "neo": 8, "chol": None, "veff": None,
+             "gdf": None, "ccsd": (8, 6)},
+}
+KMESH_TOL = {"rho_R": 1e-8, "nelec": 1e-6, "embH1": 1e-8, "grad (rel)": 1e-8,
+             "eri (rel)": 1e-12, "veff": 1e-10, "rho_glob": 1e-12,
+             "gdf (rel)": 1e-10, "R1": 1e-12, "R2": 1e-12, "E_corr": 1e-9,
+             "t1": 1e-7, "t2": 1e-7}
+
+
+def kmesh_model_inputs(size, neo):
+    """The model case as host arrays: the Fock pair f (1, nk, n, n) of
+    SquareLattice(*size, 2, 2) at U = 4 and the PM seed vcor moved by
+    seeded noise (vmat (1, n, n)), a random real-space basis carried to k
+    (b_re, b_im (1, nk, n, neo)) and a random symmetric fit target."""
+    import libdmet_preview_tpu_torch.dmet.hubbard as dmet
+    from libdmet_preview_tpu_torch.ops import fourier
+    p = KMESH_MODEL
+    Lat = dmet.SquareLattice(*size, *p["imp"])
+    Lat.set_Ham(dmet.Ham(Lat, p["U"]), use_hcore_as_emb_ham=True,
+                device="cpu")
+    vcor = dmet.PMInitGuess(p["imp"], p["U"], p["filling"])
+    rng = np.random.RandomState(p["seed"])
+    vcor.update(vcor.param + rng.randn(len(vcor.param)) * 0.05)
+    f_re, f_im = (np.asarray(x) for x in Lat.getFock(kspace=True))
+    if f_re.ndim == 3:
+        f_re, f_im = f_re[None], f_im[None]
+    kmesh = tuple(int(x) for x in Lat.kmesh)
+    nk, n = f_re.shape[1], f_re.shape[-1]
+    b = rng.randn(1, nk, n, neo) / np.sqrt(nk * n)
+    b_re, b_im = fourier.R2k(b, kmesh)
+    t = rng.randn(1, neo, neo) * 0.1
+    return {"f_re": f_re, "f_im": f_im, "vmat": np.asarray(vcor.get())[:1],
+            "kmesh": kmesh, "nelec2": int(round(2 * nk * n * p["filling"])),
+            "beta": p["beta"], "b_re": np.asarray(b_re),
+            "b_im": np.asarray(b_im),
+            "target": 0.5 * (t + t.transpose(0, 2, 1))
+            + 0.5 * np.eye(neo)[None]}
+
+
+def kmesh_chol_inputs(dims):
+    """tests/test_parallel.py's random factors L (naux, n, n) and basis
+    (1, ncells, nlo, neo) at dims = (ncells, nlo, naux, neo)."""
+    ncells, nlo, naux, neo = dims
+    rng = np.random.RandomState(3)
+    n = ncells * nlo
+    L = rng.randn(naux, n, n)
+    return L + L.transpose(0, 2, 1), rng.randn(1, ncells, nlo, neo)
+
+
+def kmesh_veff_inputs(dims):
+    """A small phase-6 workload lattice's arrays (hcore, fock, L, eri_imp)
+    at dims = (ncells, nlo, naux, neo), a random unrestricted basis (2,
+    ncells, nlo, neo) and a random symmetric rdm1_emb (2, neo, neo)."""
+    ncells, nlo, naux, neo = dims
+    work = make_abinitio_workload(seed=7, ncells=ncells, nlo=nlo, naux=naux)
+    rng = np.random.RandomState(2)
+    basis = rng.randn(2, ncells, nlo, neo) / np.sqrt(ncells * nlo)
+    r = rng.randn(2, neo, neo) * 0.1
+    rdm1 = 0.5 * (r + r.transpose(0, 2, 1)) + 0.5 * np.eye(neo)[None]
+    return work, basis, rdm1
+
+
+def abinitio_lattice(hcore, fock, L, eri_imp, device):
+    """The phase-6 lattice of those arrays on `device` (no mean field)."""
+    import libdmet_preview_tpu_torch.dmet.hubbard as dmet
+    from libdmet_preview_tpu_torch.models.abinitio import AbInitioHam
+    nlo = hcore.shape[-1]
+    Lat = dmet.ChainLattice(hcore.shape[-3] * nlo, nlo)
+    Lat.set_Ham_abinitio(AbInitioHam(hcore, fock, L, eri_imp, 0.0),
+                         device=device)
+    return Lat
+
+
+def kmesh_gdf_inputs(dims, device):
+    """make_gdf_workload's analytic factors at dims = (ncells, nlo, nfac,
+    neo) (None: phase 9c's) on `device` and gdf_against_cholesky's random
+    basis, carried to k: (factors, basis_k, ncells, nlo)."""
+    from libdmet_preview_tpu_torch.ops import fourier
+    if dims is None:
+        dims = (GDF["ncells"], GDF["nlo"], GDF["nfac"], GDF["neo"])
+    ncells, nlo, nfac, neo = dims
+    _, factors = make_gdf_workload(device, ncells=ncells, nlo=nlo, nfac=nfac)
+    rng = np.random.RandomState(21)
+    basis = rng.randn(1, ncells, nlo, neo) / np.sqrt(ncells * nlo)
+    basis_k = fourier.R2k(torch.as_tensor(basis, device=device), (ncells,))
+    return factors, basis_k, ncells, nlo
+
+
+def _antisym_W(rng, nso, scale):
+    A = rng.randn(nso * nso, nso * nso) * scale
+    W = (A - A.T).reshape(nso, nso, nso, nso)
+    W = W - W.transpose(1, 0, 2, 3)
+    W = W - W.transpose(0, 1, 3, 2)
+    return 0.5 * (W + W.transpose(2, 3, 0, 1))
+
+
+def ccsd_problem(nocc=8, nvir=6):
+    """tests/test_parallel.py::test_ccsd_solve_fully_sharded's (h_so, W):
+    a gapped diagonal Fock with seeded couplings and an antisymmetrized
+    interaction."""
+    rng = np.random.RandomState(1)
+    nso = nocc + nvir
+    h = np.diag(np.concatenate([-2.0 - np.arange(nocc)[::-1] * 0.3,
+                                1.0 + np.arange(nvir) * 0.3]))
+    m = rng.randn(nso, nso)
+    h = h + 0.02 * (m + m.T)
+    return h, _antisym_W(rng, nso, 0.03)
+
+
+def ccsd_residual_problem(nocc=8, nvir=4):
+    """tests/test_parallel.py::test_ccsd_residual_sharded's (t1, t2, h_so,
+    W)."""
+    rng = np.random.RandomState(0)
+    nso = nocc + nvir
+    h = rng.randn(nso, nso) * 0.1
+    h = h + h.T
+    W = _antisym_W(rng, nso, 0.05)
+    t1 = rng.randn(nocc, nvir) * 0.05
+    t2 = rng.randn(nocc, nocc, nvir, nvir) * 0.05
+    t2 = t2 - t2.transpose(1, 0, 2, 3)
+    t2 = t2 - t2.transpose(0, 1, 3, 2)
+    return t1, t2, h, W
+
+
+def _rel(a, b):
+    return float(torch.max(torch.abs(a - b)) / torch.max(torch.abs(b)))
+
+
+def _abs(a, b):
+    return float(torch.max(torch.abs(torch.as_tensor(a)
+                                     - torch.as_tensor(b))))
+
+
+def _card_abinitio(mesh):
+    """Phase 6's lattice on the rank's device, its mean field and the bath
+    of that density; the basis is broadcast from rank 0 so that every rank
+    shards one basis.  Returns (Lat, basis (2, ncells, nlo, neo))."""
+    import torch.distributed as dist
+    import libdmet_preview_tpu_torch.dmet.hubbard as dmet
+    from libdmet_preview_tpu_torch.ops import embham
+    hcore, fock, L, eri_imp = make_abinitio_workload()
+    Lat = abinitio_lattice(hcore, fock, L, eri_imp, mesh.device)
+    vcor = dmet.VcorLocal(False, False, hcore.shape[-1])
+    vcor.assign(np.zeros((2,) + hcore.shape[-2:]))
+    rho, _ = dmet.HartreeFock(Lat, vcor, AI_FILLING, None)
+    basis = embham.embBasis(Lat, rho).contiguous()
+    dist.broadcast(basis, 0)
+    return Lat, basis
+
+
+def kmesh_cases(mesh, size, prebuilt=None, keep=False):
+    """Every parallel.kmesh function on `mesh` (axes "k" and "aux")
+    against the serial port path on the rank's device, at `size` ("tier1"
+    or "card"; KMESH_SIZES).  prebuilt may carry the card's objects:
+    "square" (the model inputs), "abinitio" ((Lat, basis, rdm1_emb)),
+    "gdf" ((factors, basis_k, ncells, nlo)), "ccsd" ({"h_so", "W",
+    "nocc"})); what it lacks is rebuilt from the seeds.  Raises past
+    KMESH_TOL.  Returns {"errors": {case: max deviation}, "launches": the
+    symmetric syrk launches of the sharded ERI call, "plain_cuda": plain
+    syrk calls on CUDA tensors in it, "results": the sharded results as
+    host arrays (keep=True)}."""
+    import libdmet_preview_tpu_torch.dmet.hubbard as dmet
+    from libdmet_preview_tpu_torch.ops import eri_kernels as ek
+    from libdmet_preview_tpu_torch.ops import embham, fourier, zlinalg
+    from libdmet_preview_tpu_torch.ops.eri_transform import (
+        get_emb_eri_chol, get_emb_eri_gdf)
+    from libdmet_preview_tpu_torch.parallel import kmesh as km
+    from libdmet_preview_tpu_torch.parallel.dryrun import fit_loss_and_grad
+    from libdmet_preview_tpu_torch.solvers import cc
+    from libdmet_preview_tpu_torch.utils.misc import as_f64
+    dims = KMESH_SIZES[size]
+    pre = dict(prebuilt or {})
+    dev = mesh.device
+    errs, out, bad = {}, {}, []
+
+    def hold(name, err, tol_key):
+        errs[name] = float(err)
+        if not err <= KMESH_TOL[tol_key]:
+            bad.append("%s %.3e > %.0e" % (name, err, KMESH_TOL[tol_key]))
+
+    def t(x):
+        return as_f64(x, dev)
+
+    # -- the model lattice: mean field, embedding H1, the vcor gradient --
+    m = pre.get("square") or kmesh_model_inputs(dims["square"], dims["neo"])
+    h_re = m["f_re"] + m["vmat"][:, None]
+    rho_R, mu, nchk = km.hf_rho_sharded(mesh, h_re, m["f_im"], m["kmesh"],
+                                        m["nelec2"], m["beta"])
+    r_re, r_im, _ = zlinalg.zrho_fermi(t(h_re), t(m["f_im"]), m["nelec2"],
+                                       m["beta"])
+    hold("hf_rho rho_R", _abs(rho_R, fourier.k2R((r_re, r_im), m["kmesh"])),
+         "rho_R")
+    hold("hf_rho nelec_check", abs(float(nchk) - m["nelec2"]), "nelec")
+    basis_k = (m["b_re"], m["b_im"])
+    h1 = km.transform_h1_sharded(mesh, (h_re, m["f_im"]), basis_k)
+    hold("transform_h1", _abs(h1, embham.transform_h1(
+        (t(h_re), t(m["f_im"])), (t(m["b_re"]), t(m["b_im"])))), "embH1")
+    args = (m["f_re"], m["f_im"], m["vmat"], t(m["b_re"]), t(m["b_im"]),
+            t(m["target"]), m["nelec2"], m["beta"])
+    loss, g = fit_loss_and_grad(mesh, *args)
+    loss_s, g_s = fit_loss_serial(*args, device=dev)
+    hold("zrho loss", abs(loss - loss_s) / abs(loss_s), "grad (rel)")
+    hold("zrho gradient (rel)", float(np.max(np.abs(g - g_s))
+                                      / np.max(np.abs(g_s))), "grad (rel)")
+    out.update({"rho_R": rho_R, "mu": mu, "nelec_check": nchk,
+                "embH1": h1, "fit_err": loss, "grad": g})
+
+    # -- the sharded ERI (the hand-written kernel on CUDA) --
+    if "abinitio" in pre:
+        Lat_ai, basis_ai, rdm1_ai = pre["abinitio"]
+        L = Lat_ai.getH2()
+    elif dims["chol"] is None:
+        Lat_ai, basis_ai = _card_abinitio(mesh)
+        L = Lat_ai.getH2()
+        rng = np.random.RandomState(2)
+        r = rng.randn(*((2,) + basis_ai.shape[-1:] * 2)) * 0.1
+        rdm1_ai = 0.5 * (r + r.transpose(0, 2, 1)) \
+            + 0.5 * np.eye(r.shape[-1])[None]
+    else:
+        L, basis_ai = kmesh_chol_inputs(dims["chol"])
+        L = t(L)
+    b1 = basis_ai[:1]
+    plain = {"cuda": 0}
+    plain_fn = ek.syrk_df_plain
+
+    def counted(F, F2=None):
+        if F.device.type == "cuda":
+            plain["cuda"] += 1
+        return plain_fn(F, F2)
+
+    ek.syrk_df.launches = 0
+    ek.syrk_df_plain = counted
+    try:
+        eri = km.get_emb_eri_chol_sharded(mesh, L, b1)
+        launches = ek.syrk_df.launches
+    finally:
+        ek.syrk_df_plain = plain_fn
+    hold("eri_chol (rel)", _rel(eri, get_emb_eri_chol(L, b1)), "eri (rel)")
+    out["eri"] = eri
+
+    # -- the sharded veff rebuild --
+    def veff_case(msh, Lat, basis, rdm1, tag):
+        v, g_ = km.get_veff_from_rdm1_emb_sharded(msh, Lat, rdm1, basis)
+        v_s, g_s = embham.get_veff_from_rdm1_emb(Lat, rdm1, basis)
+        hold("veff%s" % tag, _abs(v, v_s), "veff")
+        hold("rho_glob%s" % tag, _abs(g_, g_s), "rho_glob")
+        return v, g_
+
+    if dims["veff"] is None:
+        Lat_v, basis_v, rdm1_v = Lat_ai, basis_ai, rdm1_ai
+    else:
+        work, basis_v, rdm1_v = kmesh_veff_inputs(dims["veff"])
+        Lat_v = abinitio_lattice(*work, dev)
+    for spin in (2, 1):
+        out["veff s%d" % spin], out["rho_glob s%d" % spin] = veff_case(
+            mesh, Lat_v, basis_v[:spin], rdm1_v[:spin], " s%d" % spin)
+
+    # -- the transfer-sharded GDF ERI --
+    factors, gbasis_k, ncells, nlo = pre.get("gdf") or kmesh_gdf_inputs(
+        dims["gdf"], dev)
+
+    def gdf_case(msh, tag):
+        for tr in (False, True):
+            e = km.get_emb_eri_gdf_sharded(msh, factors, gbasis_k, ncells,
+                                           nlo, tr_symm=tr)
+            hold("gdf tr_symm=%s%s (rel)" % (tr, tag), _rel(e, get_emb_eri_gdf(
+                factors, gbasis_k, ncells, nlo, tr_symm=tr, device=dev)),
+                "gdf (rel)")
+            out["gdf tr_symm=%s%s" % (tr, tag)] = e
+
+    gdf_case(mesh, "")
+
+    # -- uneven shards: the whole world on the aux axis, where some ranks
+    # hold only padding at the Tier-1 sizes --
+    if size == "tier1":
+        import torch.distributed as dist
+        flat = km.make_mesh((dist.get_world_size(),), ("aux",), dev)
+        for spin in (2, 1):
+            out["veff s%d flat" % spin], out["rho_glob s%d flat" % spin] = \
+                veff_case(flat, Lat_v, basis_v[:spin], rdm1_v[:spin],
+                          " s%d flat" % spin)
+        gdf_case(flat, " flat")
+
+    # -- CCSD: the residual and the whole solve, t2 sharded over occ --
+    nocc, nvir = dims["ccsd"]
+    t1r, t2r, hr, Wr = (t(x) for x in ccsd_residual_problem())
+    nr = t1r.shape[0]
+    rows = km.shard(nr, mesh, "k")
+    R1, R2 = km.ccsd_residual_sharded(mesh, t1r, t2r[rows], hr, Wr, nr)
+    with torch.no_grad():
+        R1_s, R2_s = cc._residual(t1r, t2r, hr, Wr, nr)
+    hold("ccsd residual R1", _abs(R1, R1_s), "R1")
+    hold("ccsd residual R2", _abs(R2, R2_s[rows]), "R2")
+    out.update({"R1": R1, "R2_local": R2})
+    if "ccsd" in pre:
+        h_so, W, nocc = pre["ccsd"]["h_so"], pre["ccsd"]["W"], \
+            pre["ccsd"]["nocc"]
+    else:
+        h_so, W = (t(x) for x in ccsd_problem(nocc, nvir))
+    rows = km.shard(nocc, mesh, "k")
+    t1, t2, e, conv = km.ccsd_solve_sharded(mesh, h_so, W, nocc, tol=1e-10)
+    shapes = km.ccsd_solve_sharded.last["t2_local_shapes"]
+    t1_s, t2_s, conv_s = cc._solve_amplitudes(h_so, W, nocc, tol=1e-10)
+    with torch.no_grad():
+        e_s = float(cc._ecorr(t1_s, t2_s, h_so, W, nocc))
+    hold("ccsd E_corr", abs(e - e_s), "E_corr")
+    hold("ccsd t1", _abs(t1, t1_s), "t1")
+    hold("ccsd t2", _abs(t2, t2_s[rows]), "t2")
+    want = {(rows.stop - rows.start,) + tuple(t2_s.shape[1:])}
+    if not (conv and conv_s) or shapes != want:
+        bad.append("ccsd: converged %s / %s, local t2 shapes %s (want %s)"
+                   % (conv, conv_s, shapes, want))
+    out.update({"E_corr": e, "t1": t1, "t2_local": t2,
+                "t2_local_shapes": sorted(shapes),
+                "ccsd_iterations": km.ccsd_solve_sharded.last["iterations"]})
+    if dev.type == "cuda" and (launches != 1 or plain["cuda"]):
+        bad.append("sharded ERI: %d tri launches, %d plain calls on CUDA "
+                   "(want 1, 0)" % (launches, plain["cuda"]))
+    if bad:
+        raise AssertionError("rank %d: kmesh cases failed: %s"
+                             % (mesh.rank, "; ".join(bad)))
+    res = {"errors": errs, "launches": launches, "plain_cuda": plain["cuda"]}
+    if keep:
+        res["results"] = {k: to_host(v) if isinstance(v, torch.Tensor) else v
+                          for k, v in out.items()}
+    return res
+
+
+def fit_loss_serial(f_re, f_im, vmat, b_re, b_im, target, nelec2, beta,
+                    device):
+    """parallel.dryrun.fit_loss_and_grad on one process: the Fermi density
+    of every k point by ops.zlinalg.zrho_fermi.  Returns (float, array)."""
+    from libdmet_preview_tpu_torch.ops import zlinalg
+    v = torch.as_tensor(np.asarray(vmat, dtype=np.float64),
+                        device=device).requires_grad_(True)
+    h_re = torch.as_tensor(f_re, device=device) + v[:, None]
+    r_re, r_im, _ = zlinalg.zrho_fermi(h_re, torch.as_tensor(f_im,
+                                                             device=device),
+                                       nelec2, beta)
+    nk = f_re.shape[1]
+    ein = torch.einsum
+    rho_emb = (ein("skpi, skpq, skqj -> sij", b_re, r_re, b_re)
+               + ein("skpi, skpq, skqj -> sij", b_im, r_re, b_im)
+               + ein("skpi, skpq, skqj -> sij", b_im, r_im, b_re)
+               - ein("skpi, skpq, skqj -> sij", b_re, r_im, b_im)) / nk
+    loss = torch.sum((rho_emb - target) ** 2)
+    (g,) = torch.autograd.grad(loss, v)
+    return float(loss.detach()), g.cpu().numpy()
