@@ -33,7 +33,13 @@ Phases, in order; any failure raises and the process exits non-zero:
   5. the 1D Hubbard flagship through the port's entry point
      (libdmet_preview_tpu_torch.entry.entry: ChainLattice(18, 2), U=4,
      PMInitGuess, 20 fit steps): its step on the card against the CPU at
-     its own (p0, rho_target) and at a target the fit has work on;
+     its own (p0, rho_target) and at a target the fit has work on, timed
+     by utils.logger.Timer on the card; the vcor's show(); the lattice's
+     FFTtoK / FFTtoT on the flagship and the 40 x 40 lattice, card vs CPU
+     (1e-12) and back to the stripe; entry.dmet_forward at the flagship
+     (9 cells x 2 sites, beta = 1000) card vs CPU: E_mf, rho_R, fit_err,
+     embH1's impurity block and spectrum (1e-10; the SVD bath's column
+     gauge is free);
   6. the unrestricted ab initio path, one-shot interacting-bath UHF-DMET
      at the width of the CuO2 AFM plane (8 cells x 30 LOs, neo=60,
      naux=2400; inputs made with NumPy from fixed seeds): HartreeFock ->
@@ -285,8 +291,9 @@ Phases, in order; any failure raises and the process exits non-zero:
  14. the periodic Gaussian cell (ints/pbc, gth, basisopt, the native
      short-range core): 14a the JAX suite's periodic-engine oracles on the
      card and the CPU; 14b the reference's H chain built by the port's
-     cell, its integrals against the JAX engine's file and its IB FCI
-     loop; 14c the nk = 6 chain and the 3 x 3 x 3 H2 crystal.
+     cell through the JAX package's call form make_hchain_pbc_lattice(
+     nk=3, ...), its integrals against the JAX engine's file and its IB
+     FCI loop; 14c the nk = 6 chain and the 3 x 3 x 3 H2 crystal.
  15. the streamed embedding-ERI drivers and diamond (ints/pbc's aft / fft
      / rs drivers, the 'aft' H2 format, models/abinitio's diamond
      factories, the threaded native short-range core; the SR ERI rows of
@@ -822,9 +829,11 @@ def phase_bench(device):
 def phase_hubbard(device):
     """Phase 5 through the port's entry point entry(): its step on the card
     against the CPU, at its own (p0, rho_target) and at a target that the
-    fit has work on (carried into the fit basis)."""
+    fit has work on (carried into the fit basis); then the flagship's
+    vcor summary, lattice transforms and dmet_forward card vs CPU."""
     from libdmet_preview_tpu_torch.entry import entry
     from libdmet_preview_tpu_torch.ops.zlinalg import rho_fermi_real
+    from libdmet_preview_tpu_torch.utils.logger import Timer
     # the flagship's doubled count: 2 (ncore + nval) of its 2-site cell
     nelec2, neo = 4, 4
 
@@ -834,6 +843,7 @@ def phase_hubbard(device):
 
     outs, own = [], []
     for dev in (device, torch.device("cpu")):
+        timer = Timer("5 entry()", device=dev)
         step, (p0, rho_target) = entry(dev)
         own.append(step(p0, rho_target))
         dp = np.random.RandomState(11).randn(len(p0)) * 0.1
@@ -841,9 +851,97 @@ def phase_hubbard(device):
         tgt = target_in_fit_basis(step, p0, torch.as_tensor(dp, device=dev),
                                   ph, target)
         outs.append(step(p0, tgt))
+        timer.log("on %s: set-up and two steps" % dev.type)
     torch.cuda.synchronize()
     compare_steps(own[0], own[1], "hubbard entry()")
     compare_steps(outs[0], outs[1], "hubbard")
+    lattice_fft_checks(device)
+    dmet_forward_check(device)
+
+
+FLAGSHIP = {"ncells": 9, "nlo": 2, "U": 4.0, "filling": 0.5}
+CLOSING_TOL = {"FFTtoK": 1e-12, "FFTtoT": 1e-12, "round trip": 1e-12,
+               "E_mf": 1e-10, "rho_R": 1e-10, "fit_err": 1e-10,
+               "embH1 impurity block": 1e-10, "embH1 spectrum": 1e-10}
+
+
+def _closing_verdict(label, diffs):
+    for k, v in diffs.items():
+        print("%s: cuda vs cpu %-22s %.3e (tol %.0e)"
+              % (label, k, v, CLOSING_TOL[k]))
+    bad = [k for k, v in diffs.items() if not v <= CLOSING_TOL[k]]
+    if bad:
+        raise AssertionError("%s: cuda and cpu disagree on %s" % (label, bad))
+
+
+def lattice_fft_checks(device):
+    """The flagship's vcor summary (Vcor.show), and LatticeModel.FFTtoK /
+    FFTtoT of a random stripe on the flagship chain and on the 40 x 40
+    lattice (400 cells): card vs CPU, and back to the stripe on the
+    card."""
+    import libdmet_preview_tpu_torch.dmet.hubbard as dmet
+    f = FLAGSHIP
+    vcor = dmet.PMInitGuess((f["nlo"],), f["U"], f["filling"])
+    print("hubbard flagship vcor.show(): %s"
+          % vcor.show().replace("\n", " "))
+    for name, Lat in (("ChainLattice(18, 2)", dmet.ChainLattice(18, 2)),
+                      ("SquareLattice(40, 40, 2, 2)",
+                       dmet.SquareLattice(40, 40, 2, 2))):
+        n = Lat.nscsites
+        A = np.random.RandomState(13).randn(2, Lat.ncells, n, n)
+        diffs = {}
+        k_d = Lat.FFTtoK(torch.as_tensor(A, device=device))
+        k_c = Lat.FFTtoK(torch.as_tensor(A))
+        diffs["FFTtoK"] = max(float(torch.max(torch.abs(a.cpu() - b)))
+                              for a, b in zip(k_d, k_c))
+        R_d = Lat.FFTtoT(k_d)
+        diffs["FFTtoT"] = float(torch.max(torch.abs(R_d.cpu()
+                                                    - Lat.FFTtoT(k_c))))
+        diffs["round trip"] = float(np.max(np.abs(R_d.cpu().numpy() - A)))
+        if R_d.device.type != device.type:
+            raise AssertionError("FFTtoT left the card")
+        _closing_verdict("hubbard %s" % name, diffs)
+
+
+def dmet_forward_check(device):
+    """entry.dmet_forward at the flagship (9 cells x 2 sites, U = 4, half
+    filling, beta = 1000, a random symmetric vmat) on the card against the
+    CPU; embH1 by its impurity block and spectrum (the bath's SVD columns
+    carry a free sign)."""
+    from libdmet_preview_tpu_torch.entry import _hubbard_fock_k, dmet_forward
+    from libdmet_preview_tpu_torch.ops.zlinalg import dft_tables
+    f = FLAGSHIP
+    ncells, nlo = f["ncells"], f["nlo"]
+    f_re, f_im = _hubbard_fock_k(ncells, nlo, f["U"], f["filling"])
+    cos_t, sin_t = dft_tables((ncells,))
+    neo = 2 * nlo
+    v = np.random.RandomState(17).randn(1, nlo, nlo) * 0.1
+    args = (f_re, f_im, v + v.transpose(0, 2, 1),
+            np.eye(neo)[None] * f["filling"], cos_t, sin_t,
+            np.arange(nlo, ncells * nlo), ncells * 2 * nlo * f["filling"],
+            BETA, nlo)
+    t0 = time.perf_counter()
+    out_d = dmet_forward(*args, device=device)
+    _sync(device)
+    ms = (time.perf_counter() - t0) * 1e3
+    E_d, rho_d, h_d, err_d = (x.cpu().numpy() for x in out_d)
+    E_c, rho_c, h_c, err_c = (x.numpy() for x in dmet_forward(
+        *args, device=torch.device("cpu")))
+    if not all(np.all(np.isfinite(x)) for x in (E_d, rho_d, h_d, err_d)):
+        raise AssertionError("dmet_forward: non-finite output on the card")
+    if rho_d.shape != (1, ncells, nlo, nlo) or h_d.shape != (1, neo, neo):
+        raise AssertionError("dmet_forward: shapes %s, %s"
+                             % (rho_d.shape, h_d.shape))
+    print("hubbard dmet_forward on %s: E_mf %.12f, fit_err %.6e, %.2f ms "
+          "(first call)" % (device.type, float(E_d), float(err_d), ms))
+    _closing_verdict("hubbard dmet_forward", {
+        "E_mf": abs(float(E_d - E_c)),
+        "rho_R": float(np.max(np.abs(rho_d - rho_c))),
+        "fit_err": abs(float(err_d - err_c)),
+        "embH1 impurity block": float(np.max(np.abs(
+            h_d[:, :nlo, :nlo] - h_c[:, :nlo, :nlo]))),
+        "embH1 spectrum": float(np.max(np.abs(
+            np.linalg.eigvalsh(h_d) - np.linalg.eigvalsh(h_c))))})
 
 
 # ----------------------------------------------------------------------
@@ -4422,24 +4520,36 @@ def _print_cell_stages(label, card, sec):
               % (label, card, k, sum(v), len(v)))
 
 
-def _cell_lattice(nk, device, card, label):
-    """make_hchain_supercell -> make_hchain_pbc_lattice on `device`, the
-    cell's integral stages timed.  Returns (Lat, meta, stage seconds,
-    build seconds)."""
+def _cell_lattice(nk, device, card, label, jax_form=False):
+    """make_hchain_supercell -> make_hchain_pbc_lattice on `device`, or
+    with jax_form the one call make_hchain_pbc_lattice(nk=nk, nH=..., R=...,
+    vac=..., basis=...) of the JAX package's form, which builds the same
+    cell; the cell's integral stages timed.  Returns (Lat, meta, stage
+    seconds, build seconds)."""
     from libdmet_preview_tpu_torch import workloads as wl
+    from libdmet_preview_tpu_torch.models.abinitio import \
+        make_hchain_pbc_lattice
     from libdmet_preview_tpu_torch.utils import timer
     _sync(device)
     t0 = time.perf_counter()
     with timer.recording() as sec:
-        cell = wl.hchain_cell(nk, device)
-        Lat, meta = wl.hchain_lattice(cell, device)
+        if jax_form:
+            Lat, meta = make_hchain_pbc_lattice(nk=nk, device=device,
+                                                **wl.HCHAIN_CELL)
+            cell = meta["cell"]
+        else:
+            cell = wl.hchain_cell(nk, device)
+            Lat, meta = wl.hchain_lattice(cell, device)
     _sync(device)
     wall = time.perf_counter() - t0
     ints = meta["ints"]
-    print("%s [%s]: make_hchain_supercell(nk=%d) -> make_hchain_pbc_lattice"
-          ": nao %d, mesh %s (%d G), long-range mesh %d G, %.2f s (E_hf "
-          "%.12f, Cholesky naux %d)"
-          % (label, card, nk, ints.nao, cell.mesh, int(np.prod(cell.mesh)),
+    print("%s [%s]: %s: nao %d, mesh %s (%d G), long-range mesh %d G, %.2f "
+          "s (E_hf %.12f, Cholesky naux %d)"
+          % (label, card, ("make_hchain_pbc_lattice(nk=%d, **HCHAIN_CELL) "
+                           "(the JAX call form)" if jax_form else
+                           "make_hchain_supercell(nk=%d) -> "
+                           "make_hchain_pbc_lattice") % nk,
+             ints.nao, cell.mesh, int(np.prod(cell.mesh)),
              cell.coulG_rs(1.0)[0].shape[0], wall, meta["E_hf"],
              Lat.chol_L.shape[0]))
     _print_cell_stages(label, card, sec)
@@ -4476,7 +4586,8 @@ def _run_counted_loop(Lat, meta, device, card, label):
 
 def phase_pbc_hchain(device, card):
     """14b: the reference's H chain (nk = 3) built by the port's cell on
-    the card: its integrals against the JAX engine's file, the IB FCI loop
+    the card, through the JAX call form make_hchain_pbc_lattice(nk=3,
+    ...): its integrals against the JAX engine's file, the IB FCI loop
     at the anchor and the JAX loop's value, the UHF non-interacting bath
     from the cell.  Returns (tri launches, (naux, neo))."""
     from libdmet_preview_tpu_torch import workloads as wl
@@ -4484,7 +4595,7 @@ def phase_pbc_hchain(device, card):
     label = "14b H chain nk=3"
     bad = []
     # the main path: counts start at 0 in _run_counted_loop
-    Lat, meta, _, _ = _cell_lattice(3, device, card, label)
+    Lat, meta, _, _ = _cell_lattice(3, device, card, label, jax_form=True)
     E, recs, launches, _ = _run_counted_loop(Lat, meta, device, card, label)
     ints, ref = meta["ints"], load_engine_ints(wl.HCHAIN_FILE)
     for k in ("S", "hcore", "eri", "S12", "S2"):

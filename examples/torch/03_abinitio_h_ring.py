@@ -17,7 +17,6 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 import libdmet_preview_tpu_torch.dmet.hubbard as dmet  # noqa: E402
-from libdmet_preview_tpu_torch.ints.gto import h_ring_mole  # noqa: E402
 from libdmet_preview_tpu_torch.models.abinitio import \
     make_h_ring_lattice  # noqa: E402
 from libdmet_preview_tpu_torch.solvers.cc import CCSD  # noqa: E402
@@ -27,9 +26,9 @@ ap.add_argument("--device", default="cuda")
 device = torch.device(ap.parse_args().device)
 
 # H6 ring, 3 cells of 2 atoms
-Lat, meta = make_h_ring_lattice(h_ring_mole(6, 1.8, "3-21g"), ncells=3,
-                                localization="iao", minimal_ref="sto-6g",
-                                device=device)
+Lat, meta = make_h_ring_lattice(ncells=3, atoms_per_cell=2, r_bond=1.8,
+                                basis="3-21g", localization="iao",
+                                minimal_ref="sto-6g", device=device)
 nlo, ncells = meta["nlo"], Lat.ncells
 print("molecular RHF total energy: %.10f" % meta["E_hf"])
 

@@ -19,7 +19,6 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 import libdmet_preview_tpu_torch.dmet.hubbard as dmet  # noqa: E402
-from libdmet_preview_tpu_torch.ints.gto import h_ring_mole  # noqa: E402
 from libdmet_preview_tpu_torch.models.abinitio import (  # noqa: E402
     attach_ks, make_h_ring_lattice)
 from libdmet_preview_tpu_torch.solvers import FCI  # noqa: E402
@@ -29,8 +28,8 @@ ap.add_argument("--device", default="cuda")
 device = torch.device(ap.parse_args().device)
 
 # H6 ring, 2 atoms per cell; KS-LSDA lattice state
-Lat, meta = make_h_ring_lattice(h_ring_mole(6, 1.8, "sto-6g"), ncells=3,
-                                device=device)
+Lat, meta = make_h_ring_lattice(ncells=3, atoms_per_cell=2, r_bond=1.8,
+                                basis="sto-6g", device=device)
 ks = attach_ks(Lat, meta, xc="lsda")
 print("KS (LSDA) total energy     : %.8f" % ks.e_tot)
 print("HF total energy            : %.8f" % meta["E_hf"])

@@ -1,7 +1,9 @@
 """
 The port's entry points (the counterparts of the JAX package's
-__graft_entry__.entry and dryrun_multichip):
+__graft_entry__.dmet_forward, entry and dryrun_multichip):
 
+  dmet_forward(...)        one DMET forward step on tensors: mean field,
+                           SVD bath, embedding H1, fit residual;
   entry(device)            the fused DMET lattice iteration
                            (ops/fastpath.make_dmet_iteration) on the 1D
                            Hubbard flagship, with its example arguments;
@@ -19,6 +21,78 @@ import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _hubbard_fock_k(ncells, nlo, U, filling):
+    """1D Hubbard ring Fock(k) as a (spin, nk, n, n) real pair (host
+    NumPy): hopping -1 between neighbouring sites of the ring of ncells *
+    nlo sites, plus the restricted mean-field U * filling on the
+    diagonal."""
+    from libdmet_preview_tpu_torch.ops.zlinalg import dft_tables
+    nsites = ncells * nlo
+    H = np.zeros((ncells, nlo, nlo))
+    # the first cell's rows: <0 i| h |R j> of the ring's neighbours
+    for a in range(nlo):
+        for b in ((a + 1) % nsites, (a - 1) % nsites):
+            H[b // nlo, a, b % nlo] = -1.0
+    cos_t, sin_t = dft_tables((ncells,))
+    f_re = np.einsum("kR, Rij -> kij", cos_t, H) + np.eye(nlo) * (U * filling)
+    f_im = -np.einsum("kR, Rij -> kij", sin_t, H)
+    return f_re[None], f_im[None]
+
+
+def dmet_forward(f_re, f_im, vmat, rho_target, cos_t, sin_t, env_idx,
+                 nelec2, beta, nval, device=torch.device("cuda")):
+    """One DMET forward step on `device`.
+
+    f_re / f_im: (spin, nk, n, n) lattice Fock (re, im) pair; vmat: (spin,
+    n, n) correlation potential; rho_target: (spin, neo, neo) correlated
+    embedding 1-RDM to match; cos_t / sin_t: the (nk, nR) DFT tables
+    (ops.zlinalg.dft_tables); env_idx: the environment rows of the
+    flattened (R, p) site index; nelec2: the electron count on the doubled
+    spectrum (2x physical); beta: inverse temperature; nval: bath orbitals
+    (neo = n + nval).  Arrays or tensors.
+
+    The mean field is the Fermi density of the complex Hermitian H(k) =
+    f(k) + vmat (ops.zlinalg.zrho_fermi, mu over every spin and k); the
+    bath is the left singular vectors of the environment-valence block of
+    rho_R; embH1 and the mean-field embedding density are
+    sum_k B(k)^H X(k) B(k) / nk.  Returns (E_mf, rho_R (spin, nR, n, n),
+    embH1 (spin, neo, neo), fit_err = ||rho_emb - rho_target||), tensors
+    on `device`."""
+    from libdmet_preview_tpu_torch.ops.zlinalg import zrho_fermi
+    from libdmet_preview_tpu_torch.utils.misc import as_f64
+    device = torch.device(device)
+    f_re, f_im, vmat, rho_target, cos_t, sin_t = (
+        as_f64(x, device)
+        for x in (f_re, f_im, vmat, rho_target, cos_t, sin_t))
+    env_idx = torch.as_tensor(env_idx, device=device)
+    spin, nk, n, _ = f_re.shape
+    h_re = f_re + vmat[:, None]
+    rho_kre, rho_kim, _ = zrho_fermi(h_re, f_im, nelec2, beta)
+    rho_R = (torch.einsum("kR, skpq -> sRpq", cos_t, rho_kre)
+             - torch.einsum("kR, skpq -> sRpq", sin_t, rho_kim)) / nk
+    E_mf = (torch.sum(h_re * rho_kre) + torch.sum(f_im * rho_kim)) / nk
+
+    # Schmidt bath: SVD of the environment-valence block of rho_R
+    nR = rho_R.shape[1]
+    env = rho_R.reshape(spin, nR * n, n)[:, env_idx, :nval]
+    u = torch.linalg.svd(env, full_matrices=False)[0]
+    neo = n + nval
+    basis = torch.zeros((spin, nR * n, neo), dtype=f_re.dtype, device=device)
+    basis[:, :n, :n] = torch.eye(n, dtype=f_re.dtype, device=device)
+    basis[:, env_idx, n:] = u
+
+    # B(k) = sum_R e^{i k.R} B(R) (the tables' transpose, as in the JAX
+    # package); X(k) -> sum_k B^H X B / nk
+    phase = torch.complex(cos_t.T, sin_t.T)
+    B = torch.einsum("kR, sRpj -> skpj", phase,
+                     basis.reshape(spin, nR, n, neo).to(phase.dtype))
+    Bh = B.conj().transpose(-1, -2)
+    embH1 = (Bh @ torch.complex(h_re, f_im) @ B).sum(dim=1).real / nk
+    rho_emb = (Bh @ torch.complex(rho_kre, rho_kim) @ B).sum(dim=1).real / nk
+    fit_err = torch.linalg.norm(rho_emb - rho_target)
+    return E_mf, rho_R, embH1, fit_err
 
 
 def entry(device=torch.device("cuda")):

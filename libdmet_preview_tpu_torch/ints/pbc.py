@@ -875,9 +875,12 @@ class PbcCell(object):
     # two-electron integrals
     # ------------------------------------------------------------------
 
-    def intor_eri(self):
+    def intor_eri(self, blksize=None):
         """(IJ|KL) = (1/Omega) sum_G w(G) f_IJ(G)^* f_KL(G), chemist
-        notation, real, (nao,)*4 on the device."""
+        notation, real, (nao,)*4 on the device.  blksize: the JAX
+        package's G rows per block, accepted and not read: the port sizes
+        its G blocks by bytes (_rows_per_block), so the values do not
+        depend on it (the same holds for the other ERI methods)."""
         return self._memo("eri", self._eri).clone()
 
     def _eri(self):
@@ -888,7 +891,8 @@ class PbcCell(object):
             eri = _wgram(f.reshape(f.shape[0], nao * nao), self._dev(w))
         return _symm8((eri / self.vol).reshape(nao, nao, nao, nao))
 
-    def intor_eri_rs(self, omega=None, gmax_lr=None, pair_tol=None):
+    def intor_eri_rs(self, omega=None, gmax_lr=None, blksize=None,
+                     pair_tol=None):
         """Dense torus ERI by RANGE SEPARATION: real-space erfc short
         range (native lattice-summed quadruples, host) + coarse-G-mesh
         erf long range (device) + G=0 correction.
@@ -940,7 +944,7 @@ class PbcCell(object):
                 m, nao, nao, nao)
         return dense.reshape(nao, nao, nao, nao)
 
-    def eri_trans_full(self, Gw=None):
+    def eri_trans_full(self, blksize=None, Gw=None):
         """Translation-symmetric supercell ERI in the 'full' H2 format
         (models/hamiltonian.py): eri_F[R1, R2, R3, p, q, r, s] =
         (0p R1q | R2r R3s), (N,)*3 + (m,)*4 on the device, assembled from
@@ -989,7 +993,8 @@ class PbcCell(object):
         D = self._dev(self.tr_diff.T)                 # D[R2, R3]
         return full[:, R2, D].contiguous()
 
-    def eri_trans_full_rs(self, omega=1.0, gmax_lr=None, pair_tol=None):
+    def eri_trans_full_rs(self, omega=1.0, gmax_lr=None, blksize=None,
+                          pair_tol=None):
         """Translation-'full' supercell ERI by RANGE SEPARATION: the
         native short-range rows (host) reindexed into the full format +
         the erf long range on the coarse damped mesh (device) + the G=0

@@ -8,9 +8,12 @@ also take a port molecule (ints.gto.Mole / ints.md.MoleGeneral), whose
 record they make with mole_engine_ints and which they keep in
 meta["mole"], and make_hchain_pbc_lattice / make_hchain_pbc_lattice_uhf a
 port cell (ints.pbc.PbcCell, e.g. make_hchain_supercell), whose record
-they make with cell_engine_ints against MINAO and keep in meta["cell"],
-as the JAX factories do.  From there the pipeline is the JAX package's,
-on `device`:
+they make with cell_engine_ints against minao_ref (MINAO by default) and
+keep in meta["cell"], as the JAX factories do.  They also take the JAX
+package's call forms, make_h_ring_lattice(ncells, atoms_per_cell, r_bond,
+basis, ...), make_hchain_pbc_lattice(nk, nH, R, vac, basis, ...) and
+make_molecule_lattice(mol=...), which build that ring or cell first.
+From there the pipeline is the JAX package's, on `device`:
 
     S, hcore, ERI (EngineInts)
     molecular / supercell RHF or UHF     (solvers.scf.SCF, Fock on device)
@@ -38,6 +41,8 @@ make_hchain_pbc_lattice store the SPIN-TRACED rdm1 stripes on the lattice,
 as the JAX factories do (with an unrestricted embedding basis, _emb_H1
 then folds the total density into both spins; ROADMAP Queue 3).
 """
+
+import numbers
 
 import numpy as np
 import scipy.linalg as sla
@@ -195,6 +200,31 @@ def _lo_operators(ints, C, dm, device):
     return h_lo, eri_lo, rdm1_lo, h_lo + va
 
 
+def _leading_count(ints, n, name):
+    """The count that leads the JAX package's call form: `ints` when it is
+    an int (JAX's first positional argument), else the keyword `n`."""
+    if isinstance(ints, numbers.Integral):
+        if n is not None and n != ints:
+            raise TypeError("%s given twice (%r and %r)" % (name, ints, n))
+        return int(ints)
+    return n
+
+
+def _hchain_cell(ints, nk, nH, R, vac, basis, gmax, device):
+    """`ints` as it is, or in the JAX call form (ints an int or None) the
+    H chain's cell ints.pbc.make_hchain_supercell(nk, ...) on `device`."""
+    if ints is not None and not isinstance(ints, numbers.Integral):
+        if nk is not None:
+            raise TypeError("nk= is the JAX call form's; with ints given, "
+                            "the cells come from ints")
+        return ints
+    from libdmet_preview_tpu_torch.ints.pbc import make_hchain_supercell
+    nk = _leading_count(ints, nk, "nk")
+    return make_hchain_supercell(nk=3 if nk is None else nk, nH=nH, R=R,
+                                 vac=vac, basis=basis, gmax=gmax,
+                                 device=device)
+
+
 def _as_engine_ints(ints, ncells, minimal_ref):
     """(EngineInts, the molecule or cell, or None) of a factory's input."""
     from libdmet_preview_tpu_torch.ints.pbc import PbcCell
@@ -207,10 +237,12 @@ def _as_engine_ints(ints, ncells, minimal_ref):
                             minimal_ref=minimal_ref), mol
 
 
-def make_molecule_lattice(ints, chol_tol=1e-10, device=torch.device("cuda")):
+def make_molecule_lattice(ints=None, chol_tol=1e-10,
+                          device=torch.device("cuda"), mol=None):
     """Molecular (non-PBC) DMET: a single-cell 'lattice' whose fragments
     are orbital subsets.  ints: the molecule's EngineInts, or the molecule
-    (ints.gto.Mole / ints.md.MoleGeneral; kept in meta["mole"]).
+    (ints.gto.Mole / ints.md.MoleGeneral; kept in meta["mole"]); mol= is
+    the JAX package's name for the molecule.
 
     Returns (Lat, meta) in the Lowdin-LO basis; run DMET with
     imp_idx/val_idx fragment subsets of the LOs.  meta's matrices are
@@ -219,7 +251,9 @@ def make_molecule_lattice(ints, chol_tol=1e-10, device=torch.device("cuda")):
     from libdmet_preview_tpu_torch.models.lattice import ChainLattice
     from libdmet_preview_tpu_torch.ops.eri_transform import cholesky_eri
     from libdmet_preview_tpu_torch.solvers.scf import SCF, _veff_uhf
-    ints, mol = _as_engine_ints(ints, 1, None)
+    if (ints is None) == (mol is None):
+        raise TypeError("make_molecule_lattice takes one of ints and mol")
+    ints, mol = _as_engine_ints(mol if ints is None else ints, 1, None)
     nsite = ints.nao
     C = lowdin(as_f64(ints.S, device))
     h_lo = C.T @ as_f64(ints.hcore, device) @ C
@@ -247,15 +281,22 @@ def make_molecule_lattice(ints, chol_tol=1e-10, device=torch.device("cuda")):
     return Lat, meta
 
 
-def make_h_ring_lattice(ints, chol_tol=1e-10, localization="lowdin",
-                        device=torch.device("cuda"), ncells=None,
-                        minimal_ref="sto-6g"):
+def make_h_ring_lattice(ints=None, atoms_per_cell=1, r_bond=1.8,
+                        basis="sto-6g", chol_tol=1e-10, localization="lowdin",
+                        minimal_ref="sto-6g", device=torch.device("cuda"),
+                        ncells=None):
     """An ab initio DMET lattice from an H ring's EngineInts (ncells cells
     of atoms_per_cell atoms, AO order cell-major), or from the ring itself
     (ints.gto.Mole, e.g. ints.gto.h_ring_mole(n, r_bond, basis)) cut into
     `ncells` cells (default: one atom per cell); the IAOs are then taken
     against `minimal_ref`, and the molecule is kept in meta["mole"] (what
     attach_ks reads).
+
+    The JAX package's call form, make_h_ring_lattice(ncells,
+    atoms_per_cell=1, r_bond=1.8, basis="sto-6g", ...) (ints an int, or
+    ncells= alone), builds that ring, h_ring_mole(ncells * atoms_per_cell,
+    r_bond, basis), and goes on as for a Mole; atoms_per_cell, r_bond and
+    basis are read only in that form.
 
     localization:
       'lowdin' -- S^{-1/2} LOs, all valence (minimal-basis workflow)
@@ -266,6 +307,12 @@ def make_h_ring_lattice(ints, chol_tol=1e-10, localization="lowdin",
     results in meta (tensors on `device`)."""
     from libdmet_preview_tpu_torch.models.lattice import ChainLattice
     from libdmet_preview_tpu_torch.ops.eri_transform import cholesky_eri
+    if ints is None or isinstance(ints, numbers.Integral):
+        from libdmet_preview_tpu_torch.ints.gto import h_ring_mole
+        ncells = _leading_count(ints, ncells, "ncells")
+        if ncells is None:
+            raise TypeError("make_h_ring_lattice takes ints or ncells")
+        ints = h_ring_mole(ncells * atoms_per_cell, r_bond, basis)
     ints, mol = _as_engine_ints(
         ints, ncells, minimal_ref if localization == "iao" else None)
     ncells, apc = ints.ncells, ints.atoms_per_cell
@@ -349,15 +396,23 @@ def attach_ks(Lat, meta, xc="lsda", hyb=0.0, n_rad=60, n_theta=12,
     return ks
 
 
-def make_hchain_pbc_lattice(ints, localization="iao", chol_tol=1e-9,
-                            device=torch.device("cuda")):
+def make_hchain_pbc_lattice(ints=None, nH=2, R=1.5, vac=10.0,
+                            basis="3-21g", localization="iao",
+                            minao_ref="minao", chol_tol=1e-9, gmax=None,
+                            device=torch.device("cuda"), nk=None):
     """Ab initio DMET lattice for the periodic H chain (the BvK torus of
     ints.ncells cells): `ints` is the cell, ints.pbc.make_hchain_supercell
     (its integrals are made with cell_engine_ints, the IAO reference being
-    MINAO, and the cell is kept in meta["cell"]), or its EngineInts, e.g.
-    load_engine_ints("hchain_nk3_nH2_R1.5_vac10_3-21g.npz"), which the JAX
-    engine wrote.  RHF, IAO(+PAO) localization against the periodized
-    minimal basis (or Lowdin), stripes symmetrized over the translations.
+    `minao_ref`, and the cell is kept in meta["cell"]), or its EngineInts,
+    e.g. load_engine_ints("hchain_nk3_nH2_R1.5_vac10_3-21g.npz"), which
+    the JAX engine wrote.  RHF, IAO(+PAO) localization against the
+    periodized minimal basis (or Lowdin), stripes symmetrized over the
+    translations.
+
+    The JAX package's call form, make_hchain_pbc_lattice(nk=3, nH=2,
+    R=1.5, vac=10.0, basis="3-21g", ..., gmax=None) (ints an int, the nk,
+    or not given), builds that cell on `device` first; nH, R, vac, basis
+    and gmax are read only in that form.
 
     Energies are ELECTRONIC-only (H0 = 0), the reference's E(DMET)
     convention.  Returns (Lat, meta); meta['eri_lo'] (a device tensor)
@@ -365,7 +420,8 @@ def make_hchain_pbc_lattice(ints, localization="iao", chol_tol=1e-9,
     from libdmet_preview_tpu_torch.models.lattice import ChainLattice
     from libdmet_preview_tpu_torch.ops.eri_transform import cholesky_eri
     ints, cell = _as_engine_ints(
-        ints, None, "minao" if localization == "iao" else None)
+        _hchain_cell(ints, nk, nH, R, vac, basis, gmax, device), None,
+        minao_ref if localization == "iao" else None)
     nk, nH = ints.ncells, ints.atoms_per_cell
     nlo = ints.nao_atom * nH                  # LOs per unit cell
     myscf, E_hf, dm = _rhf_ao(ints, device, MaxIter=300)
@@ -400,9 +456,12 @@ def make_hchain_pbc_lattice(ints, localization="iao", chol_tol=1e-9,
     return Lat, meta
 
 
-def make_hchain_pbc_lattice_uhf(ints, device=torch.device("cuda")):
+def make_hchain_pbc_lattice_uhf(ints=None, nH=2, R=1.5, vac=10.0,
+                                basis="3-21g", minao_ref="minao", gmax=None,
+                                device=torch.device("cuda"), nk=None):
     """Spin-polarized (UHF) variant of make_hchain_pbc_lattice (`ints`: the
-    cell or its EngineInts): AFM-seeded supercell UHF, PER-SPIN IAO(+PAO)
+    cell or its EngineInts, or the JAX call form's nk; the IAOs against
+    `minao_ref`): AFM-seeded supercell UHF, PER-SPIN IAO(+PAO)
     localization, all lattice operators and the unit-cell ERI blocks
     (aa, bb, ab) in the spin-dependent LO bases.  Supports the NIB
     workflow (spin-blocked eri_imp; no Cholesky interacting-bath
@@ -410,7 +469,9 @@ def make_hchain_pbc_lattice_uhf(ints, device=torch.device("cuda")):
     from libdmet_preview_tpu_torch.models.integral import Integral
     from libdmet_preview_tpu_torch.models.lattice import ChainLattice
     from libdmet_preview_tpu_torch.solvers.scf import SCF, _veff_uhf
-    ints, cell = _as_engine_ints(ints, None, "minao")
+    ints, cell = _as_engine_ints(
+        _hchain_cell(ints, nk, nH, R, vac, basis, gmax, device), None,
+        minao_ref)
     nk, nH = ints.ncells, ints.atoms_per_cell
     natom, nao_atom = ints.natom, ints.nao_atom
     nlo = nao_atom * nH

@@ -199,13 +199,21 @@ class LatticeModel(object):
     # ------------------------------------------------------------------
     # Fourier transforms (stripe <-> k, (re, im) pairs)
     # ------------------------------------------------------------------
+    def FFTtoK(self, A):
+        """Stripe R -> k on this lattice's mesh; returns (re, im) pair."""
+        return fourier.FFTtoK(A, self.kmesh)
+
+    def FFTtoT(self, B, tol=fourier.IMAG_DISCARD_TOL):
+        """k pair -> stripe R (real part) on this lattice's mesh."""
+        return fourier.FFTtoT(B, self.kmesh, tol=tol)
+
     def R2k(self, A):
         """Stripe R -> k; returns (re, im) pair."""
         return fourier.R2k(A, self.kmesh)
 
-    def k2R(self, B):
-        """k pair -> stripe R (real)."""
-        return fourier.k2R(B, self.kmesh)
+    def k2R(self, B, tol=fourier.IMAG_DISCARD_TOL):
+        """k pair -> stripe R (real); tol as in fourier.k2R."""
+        return fourier.k2R(B, self.kmesh, tol=tol)
 
     def R2k_basis(self, basis_R):
         """Embedding basis R -> k pair: no 1/Nk factor."""

@@ -28,6 +28,7 @@ from libdmet_preview_tpu_torch.ops.eri_kernels import (pack_tril, syrk_df,
                                                        unpack_s4)
 from libdmet_preview_tpu_torch.ops.fit import _cg_engine, _lm_engine_ft
 from libdmet_preview_tpu_torch.ops.zlinalg import rho_fermi_real, zrho_fermi_w
+from libdmet_preview_tpu_torch.utils.misc import keyword_aliases
 
 ENGINES = ("lm", "cg")
 
@@ -222,7 +223,8 @@ class DmetIteration(nn.Module):
 
 def make_dmet_iteration(lattice, vcor, filling, beta=1000.0,
                         fit_max_iter=20, ytol=1e-7, gtol=1e-3,
-                        chol_L=None, *, engine="lm", device):
+                        chol_L=None, *, engine="lm",
+                        device=torch.device("cuda")):
     """Build the fused lattice iteration for `lattice` + `vcor` on `device`.
 
     Returns (step, params0): step is a DmetIteration module,
@@ -242,15 +244,17 @@ def make_dmet_iteration(lattice, vcor, filling, beta=1000.0,
     return step, params0
 
 
-def chain_iterations(step, n_chain):
-    """Chain n_chain iterations with a data dependency (the fitted vcor
+@keyword_aliases(step="step_fn")
+def chain_iterations(step_fn, n_chain):
+    """Chain n_chain iterations of step_fn (make_dmet_iteration's step; the
+    keyword step= is taken too) with a data dependency (the fitted vcor
     feeds the next iteration).  Returns (vparam0, rho_target) ->
     (vparam_final, last_err)."""
 
     def chained(vparam, rho_target):
         p, err = vparam, None
         for _ in range(n_chain):
-            out = step(p, rho_target)
+            out = step_fn(p, rho_target)
             p, err = out[0], out[1]
         return p, err
 

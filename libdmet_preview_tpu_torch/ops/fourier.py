@@ -23,6 +23,10 @@ import torch
 
 from libdmet_preview_tpu_torch.ops.zlinalg import dft_tables
 
+# the JAX package's imaginary-part tolerance; FFTtoT / k2R accept it as
+# `tol` and, as there, do not read it (the real part is returned)
+IMAG_DISCARD_TOL = 1e-5
+
 
 def _is_tensor(A):
     return isinstance(A[0] if isinstance(A, tuple) else A, torch.Tensor)
@@ -47,10 +51,11 @@ def _pair(A):
     return A_re, np.zeros_like(A_re)
 
 
-def R2k(A, kmesh):
+def R2k(A, kmesh, keep_complex=True):
     """Stripe R -> k.  A: ((spin,) ncells, n, m) real array or tensor, or
     an (re, im) pair of them.  Returns the (re, im) pair, tensors on A's
-    device for tensor input."""
+    device for tensor input.  keep_complex: accepted, unused, as in the
+    JAX package (the result is always the pair)."""
     if _is_tensor(A):
         A_re, A_im = _pair_t(A)
         cos_t, sin_t = _tables_t(kmesh, A_re)
@@ -66,16 +71,17 @@ def R2k(A, kmesh):
     return re, im
 
 
-def k2R(A, kmesh, real=True):
-    """k -> stripe R.  A is a (re, im) pair (or real array) of arrays or
+def k2R(B, kmesh, tol=IMAG_DISCARD_TOL, real=True):
+    """k -> stripe R.  B is a (re, im) pair (or real array) of arrays or
     of tensors; returns the real stripe if real=True, else the (re, im)
-    pair, tensors on A's device for tensor input."""
-    if _is_tensor(A):
-        A_re, A_im = _pair_t(A)
+    pair, tensors on B's device for tensor input.  tol: accepted, unused,
+    as in the JAX package."""
+    if _is_tensor(B):
+        A_re, A_im = _pair_t(B)
         cos_t, sin_t = _tables_t(kmesh, A_re)
         ein = torch.einsum
     else:
-        A_re, A_im = _pair(A)
+        A_re, A_im = _pair(B)
         cos_t, sin_t = dft_tables(tuple(int(x) for x in kmesh))
         ein = np.einsum
     nk = cos_t.shape[0]
@@ -93,8 +99,8 @@ def FFTtoK(A, kmesh):
     return R2k(A, kmesh)
 
 
-def FFTtoT(B, kmesh):
-    """k pair -> stripe R (real part)."""
+def FFTtoT(B, kmesh, tol=IMAG_DISCARD_TOL):
+    """k pair -> stripe R (real part); tol as in k2R."""
     return k2R(B, kmesh, real=True)
 
 

@@ -22,7 +22,7 @@ def _jk_local(eri, dm):
     return vj, vk
 
 
-def get_jk_local(eri, dm0, device):
+def get_jk_local(eri, dm0, device=torch.device("cuda")):
     """J/K from a local (single-cell) ERI and the cell-averaged density
     rho(R=0), contracted on `device`.  Both are k-independent.
 
@@ -35,7 +35,8 @@ def get_jk_local(eri, dm0, device):
     return vj.cpu().numpy(), vk.cpu().numpy()
 
 
-def get_jk_nearest(eri_R, dm_stripe, device):
+def get_jk_nearest(eri_R, dm_stripe, device=torch.device("cuda"),
+                   neg_map=None):
     """J/K for the 'nearest' H2 format, contracted on `device`.
 
     eri_R: (ncells, n, n, n, n) blocks (0 p 0 q | R r R s); dm_stripe:
@@ -43,15 +44,31 @@ def get_jk_nearest(eri_R, dm_stripe, device):
     (the density is the same in every cell), vk is a stripe:
       vj[p, q]    = sum_R eri_R[R, p, q, r, s] dm0[s, r]
       vk[R][p, s] = sum   eri_R[R, p, q, r, s] dm[R][r, q]
+    neg_map: the JAX package's argument, (ncells,) cell index of -R.  vk
+    reads dm[R] itself, so no negation enters; a given map is checked to
+    be a negation map as LatticeModel._neg_map is one (a permutation that
+    is its own inverse and keeps cell 0), and ValueError is raised if not.
     Returns host (vj (spin, n, n), vk (spin, ncells, n, n))."""
     dm_stripe = np.asarray(dm_stripe)
     if dm_stripe.ndim == 3:
         dm_stripe = dm_stripe[None]
+    if neg_map is not None:
+        _check_neg_map(neg_map, dm_stripe.shape[1])
     eri_R = as_f64(eri_R, device)
     dm = as_f64(dm_stripe, device)
     vj = torch.einsum("Rpqrs, tsr -> tpq", eri_R, dm[:, 0])
     vk = torch.einsum("Rpqrs, tRrq -> tRps", eri_R, dm)
     return vj.cpu().numpy(), vk.cpu().numpy()
+
+
+def _check_neg_map(neg_map, ncells):
+    m = np.asarray(neg_map)
+    if not (m.shape == (ncells,) and np.issubdtype(m.dtype, np.integer)
+            and np.array_equal(np.sort(m), np.arange(ncells))
+            and np.array_equal(m[m], np.arange(ncells)) and m[0] == 0):
+        raise ValueError("neg_map is not a map R -> -R of %d cells (a "
+                         "permutation that is its own inverse and keeps "
+                         "cell 0, as LatticeModel._neg_map)" % ncells)
 
 
 def get_jk_full_bruteforce(lattice, eri_R, dm_stripe):

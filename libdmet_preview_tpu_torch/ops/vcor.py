@@ -15,7 +15,7 @@ import itertools as it
 import numpy as np
 
 from libdmet_preview_tpu_torch.utils import logger as log
-from libdmet_preview_tpu_torch.utils.misc import triu_diag_indices
+from libdmet_preview_tpu_torch.utils.misc import to_host, triu_diag_indices
 
 
 class Vcor(object):
@@ -90,6 +90,12 @@ class Vcor(object):
 
     def diag_indices(self):
         return self._diag_idx
+
+    def show(self):
+        """The JAX package's summary string: the sizes, then get() as a
+        host NumPy array (a tensor's %s would print its torch repr)."""
+        return "Vcor(nparam=%d, spin_comp=%d, nao=%d)\n%s" % (
+            self.nparam, self.spin_comp, self.nao, to_host(self.get()))
 
     def __str__(self):
         return str(self.evaluate())

@@ -22,6 +22,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from libdmet_preview_tpu_torch.utils.misc import keyword_aliases
+
 
 # ----------------------------------------------------------------------
 # Fermi function, chemical-potential search, divided differences
@@ -179,23 +181,25 @@ class _ZRhoFermi(torch.autograd.Function):
         return g_re, g_im, None, None, None
 
 
-def zrho_fermi_w(h_re, h_im, nelec2, beta, weights):
+@keyword_aliases(nelec2="nelec")
+def zrho_fermi_w(h_re, h_im, nelec, beta, weights):
     """Grand-canonical density rho = f_beta(H - mu) of the Hermitian batch
     H = h_re + i h_im (..., n, n) at fixed electron number, with per-batch
     weights in the count N = sum_k w_k tr f(H_k) (time-reversal reduced
     meshes: w = 2 for paired k, 1 for self-paired).  Differentiable in
     h_re and h_im; the weights enter the mu constraint only.
 
-    nelec2 is the DOUBLED-spectrum count of the JAX package's zrho_fermi_w.
-    Returns (rho_re, rho_im, mu)."""
-    return _ZRhoFermi.apply(h_re, h_im, float(nelec2), float(beta), weights)
+    nelec is the DOUBLED-spectrum count of the JAX package's zrho_fermi_w
+    (the keyword nelec2= is taken too).  Returns (rho_re, rho_im, mu)."""
+    return _ZRhoFermi.apply(h_re, h_im, float(nelec), float(beta), weights)
 
 
-def zrho_fermi(h_re, h_im, nelec2, beta):
+@keyword_aliases(nelec2="nelec")
+def zrho_fermi(h_re, h_im, nelec, beta):
     """zrho_fermi_w with unit weights: rho = f_beta(H - mu) at the
-    doubled-spectrum count nelec2, batched over leading axes, with the
-    degenerate-safe derivative.  Returns (rho_re, rho_im, mu)."""
-    return _ZRhoFermi.apply(h_re, h_im, float(nelec2), float(beta), None)
+    doubled-spectrum count nelec (or nelec2=), batched over leading axes,
+    with the degenerate-safe derivative.  Returns (rho_re, rho_im, mu)."""
+    return _ZRhoFermi.apply(h_re, h_im, float(nelec), float(beta), None)
 
 
 # ----------------------------------------------------------------------

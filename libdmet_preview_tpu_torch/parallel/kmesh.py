@@ -35,7 +35,7 @@ from libdmet_preview_tpu_torch.ops.eri_kernels import (pack_tril, syrk_df,
                                                        unpack_s4)
 from libdmet_preview_tpu_torch.ops.eri_transform import _cplx, _rotate_chol
 from libdmet_preview_tpu_torch.utils import logger as log
-from libdmet_preview_tpu_torch.utils.misc import as_f64
+from libdmet_preview_tpu_torch.utils.misc import as_f64, keyword_aliases
 
 K_AXIS = "k"
 AUX_AXIS = "aux"
@@ -113,9 +113,27 @@ class Mesh(object):
 
 
 def make_mesh(shape=None, axes=(K_AXIS,), device=torch.device("cuda"),
-              timeout=TIMEOUT_S):
+              timeout=TIMEOUT_S, n_devices=None, axis=None, devices=None):
     """Mesh over the initialised default group: `shape` (default: the
-    world on one axis) over the named `axes`, computing on `device`."""
+    world on one axis) over the named `axes`, computing on `device`.
+
+    The JAX package's call form make_mesh(n_devices, axis) is the 1D mesh
+    shape=(n_devices,), axes=(axis,); its devices= has no counterpart,
+    since a rank is a process with its own device, and raises."""
+    if devices is not None:
+        raise ValueError("make_mesh: devices= has no meaning here: a rank "
+                         "is a process with its own device; start one "
+                         "rank per device and pass device=")
+    if n_devices is not None:
+        if shape is not None:
+            raise TypeError("make_mesh: give shape or n_devices, not both")
+        shape = n_devices
+    if isinstance(shape, int):
+        shape = (shape,)
+    if axis is not None:
+        axes = (axis,)
+    elif isinstance(axes, str):
+        axes = (axes,)
     if shape is None:
         shape = (dist.get_world_size(),)
     return Mesh(shape, axes, device, timeout)
@@ -364,24 +382,28 @@ def get_veff_from_rdm1_emb_sharded(mesh, lattice, rdm1_emb, basis,
 # index)
 # ----------------------------------------------------------------------
 
-def ccsd_residual_sharded(mesh, t1, t2_local, h_so, W, nocc, axis=K_AXIS):
+@keyword_aliases(t2_local="t2")
+def ccsd_residual_sharded(mesh, t1, t2, h_so, W, nocc, axis=K_AXIS):
     """CCSD (R1, R2_local) for t2 sharded over its leading occupied index.
 
-    t2_local: this rank's rows (nocc / size, nocc, nvir, nvir) of t2 (nocc
-    must divide evenly over `axis`).  The intermediates are formed from
-    the t2 assembled by one all_reduce; the rank keeps its own rows of R2.
-    t1, h_so and W are replicated."""
+    t2: this rank's rows (nocc / size, nocc, nvir, nvir) of t2 (nocc must
+    divide evenly over `axis`; the keyword t2_local= is taken too), or the
+    whole t2 (nocc, nocc, nvir, nvir), as the JAX package's callers pass
+    it, whose rows for this rank are then taken.  The intermediates are
+    formed from the t2 assembled by one all_reduce; the rank keeps its own
+    rows of R2.  t1, h_so and W are replicated."""
     if nocc % mesh.size(axis):
         raise ValueError("ccsd_residual_sharded: nocc %d does not split "
                          "over %d ranks" % (nocc, mesh.size(axis)))
+    t2_local = t2[shard(nocc, mesh, axis)] if t2.shape[0] == nocc else t2
     if t2_local.shape[0] != nocc // mesh.size(axis):
         raise ValueError("ccsd_residual_sharded: t2_local has %d rows, "
                          "not nocc / %d" % (t2_local.shape[0],
                                             mesh.size(axis)))
     from libdmet_preview_tpu_torch.solvers.cc import _residual
     dev = mesh.device
-    t2 = gather_rows(as_f64(t2_local, dev), mesh, axis)
-    R1, R2 = _residual(as_f64(t1, dev), t2, as_f64(h_so, dev),
+    t2_all = gather_rows(as_f64(t2_local, dev), mesh, axis)
+    R1, R2 = _residual(as_f64(t1, dev), t2_all, as_f64(h_so, dev),
                        as_f64(W, dev), nocc)
     return R1, R2[shard(nocc, mesh, axis)].contiguous()
 

@@ -63,9 +63,12 @@ class SCF(object):
         myscf.set_system(nelec, spin, bogoliubov, restricted)
         myscf.set_integral(Ham)
         E, rho = myscf.HF(tol=1e-10)
+
+    newton_ah is stored and read nowhere, as in the JAX package.
     """
 
-    def __init__(self, device=torch.device("cuda")):
+    def __init__(self, newton_ah=False, device=torch.device("cuda")):
+        self.newton_ah = newton_ah
         self.device = torch.device(device)
         self.nelec = None
         self.spin = 0          # 2*Sz

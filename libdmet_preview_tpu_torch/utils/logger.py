@@ -8,6 +8,8 @@ Nine levels FATAL..DEBUG2, a module-global `verbose`, and assertion helpers
 import sys
 import time
 
+from libdmet_preview_tpu_torch.utils.timer import _sync
+
 Level = {
     "FATAL": 0,
     "ERR": 1,
@@ -83,3 +85,25 @@ def eassert(cond, msg, *args):
 def check(cond, msg, *args):
     if not cond:
         warn(msg, *args)
+
+
+class Timer(object):
+    """Per-phase wall-clock timer.  With a CUDA `device`, the device is
+    synchronised before each clock read, so the seconds hold its queued
+    work (utils/timer._sync, as utils/profile.phase does)."""
+
+    def __init__(self, name="", device=None):
+        self.name = name
+        self.device = device
+        _sync(device)
+        self.t0 = time.perf_counter()
+
+    def elapsed(self):
+        _sync(self.device)
+        return time.perf_counter() - self.t0
+
+    def log(self, what=""):
+        """Log "timer <name> <what>: <s> s" at INFO; returns the seconds,
+        read again after the line is written, as the JAX package does."""
+        info("timer %s %s: %.4f s", self.name, what, self.elapsed())
+        return self.elapsed()

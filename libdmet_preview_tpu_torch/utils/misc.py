@@ -5,10 +5,30 @@ host NumPy; pack_tril / unpack_tril take arrays or tensors and return the
 same kind.
 """
 
+import functools
+
 import numpy as np
 import torch
 
 Iterable = (list, tuple, np.ndarray)
+
+
+def keyword_aliases(**old_to_new):
+    """Decorator: the keyword `old` is taken as the parameter `new`, for
+    parameters that carry the JAX package's name and had another one in
+    the port before (the old keyword keeps working)."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            for old, new in old_to_new.items():
+                if old in kwargs:
+                    if new in kwargs:
+                        raise TypeError("%s() got both %s= and %s="
+                                        % (fn.__name__, old, new))
+                    kwargs[new] = kwargs.pop(old)
+            return fn(*args, **kwargs)
+        return call
+    return wrap
 
 
 def max_abs(x):
