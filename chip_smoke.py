@@ -1258,13 +1258,20 @@ def _idle_share(fn):
     return prof.idle
 
 
+# utils.timer spans that run inside other spans of the DMET loop: the ERI
+# stages inside "H2", the per-step spans inside the solver and the fit,
+# and the stages inside "dmet iteration"
+NESTED = ("ERI rotation", "ERI pack", "ERI unpack", "syrk (tri kernel)",
+          "dmet iteration", "mu step", "davidson iteration", "fci sigma",
+          "cg step")
+
+
 def _print_loop_stages(label, res, sec, counts, card):
     """Stage seconds of a run_dmet run: the first iteration (which also
     pays for the first use of the card's libraries) apart from the mean of
-    the later ones.  The ERI stages run inside stage H2."""
+    the later ones; sums leave out the NESTED spans."""
     n_it = len(res.history)
-    inner = ("ERI rotation", "ERI pack", "ERI unpack", "syrk (tri kernel)")
-    outer = {k: v for k, v in sec.items() if k not in inner}
+    outer = {k: v for k, v in sec.items() if k not in NESTED}
     first = sum(v[0] for v in outer.values())
     later = sum(sum(v[1:]) for v in outer.values()) / max(n_it - 1, 1)
     print("%s [%s]: %d DMET iterations, converged %s; stages sum to %.4f s "
@@ -2857,9 +2864,7 @@ MAXLOC = {"ssh_nk": 16, "square_n": 12, "cubic_n": 6, "max_iter": 3000,
 
 
 def _print_hchain_stages(label, card, sec, n_it):
-    tot = sum(sum(v) for k, v in sec.items()
-              if k not in ("ERI rotation", "ERI pack", "ERI unpack",
-                           "syrk (tri kernel)"))
+    tot = sum(sum(v) for k, v in sec.items() if k not in NESTED)
     print("%s [%s]: %d iterations, %.4f s per iteration in the stages"
           % (label, card, n_it, tot / n_it))
     for k, v in sec.items():

@@ -31,7 +31,7 @@ import torch
 
 from libdmet_preview_tpu_torch.utils import logger as log
 from libdmet_preview_tpu_torch.utils.misc import as_f64
-from libdmet_preview_tpu_torch.utils.timer import stage
+from libdmet_preview_tpu_torch.utils.timer import stage, to_host
 from libdmet_preview_tpu_torch.models.lattice import (  # noqa: F401
     ChainLattice, SquareLattice, SquareAFM, Square3Band, Square3BandAFM,
     Square3BandSymm, CubicLattice, HoneycombLattice, BipartiteSquare)
@@ -175,8 +175,8 @@ def transformResults(rhoEmb, E, basis, ImpHam, H1e=None, int_bath=False,
     else:
         imp_idx = np.asarray(kwargs.get("imp_idx", np.arange(nscsites)))
     imp_t = torch.as_tensor(imp_idx, device=rhoEmb.device)
-    nelec = float(sum(torch.sum(rhoEmb[s, imp_t, imp_t])
-                      for s in range(spin))) * 2.0 / spin
+    nelec = to_host(sum(torch.sum(rhoEmb[s, imp_t, imp_t])
+                        for s in range(spin)), float) * 2.0 / spin
     rhoImp = rhoEmb[:, imp_t[:, None], imp_t[None, :]]
 
     if E is None:
@@ -190,8 +190,8 @@ def transformResults(rhoEmb, E, basis, ImpHam, H1e=None, int_bath=False,
     env_idx = _env_idx(nbasis, imp_idx)
     H1 = ImpHam.H1["cd"]
 
-    E2 = E - float(torch.einsum("spq, sqp", H1, rhoEmb)) * (2.0 / spin) \
-        - ImpHam.H0
+    E2 = E - to_host(torch.einsum("spq, sqp", H1, rhoEmb), float) \
+        * (2.0 / spin) - ImpHam.H0
 
     H1_scaled = H1.clone()
     dmu_mat = torch.zeros((nscsites, nscsites), dtype=H1.dtype,
@@ -204,7 +204,8 @@ def transformResults(rhoEmb, E, basis, ImpHam, H1e=None, int_bath=False,
             H1_scaled[s] -= 0.5 * lattice.JK_core[s]
     H1_scaled = get_H1_scaled(H1_scaled, imp_idx, env_idx)
 
-    E1 = float(torch.einsum("spq, sqp", H1_scaled, rhoEmb)) * (2.0 / spin)
+    E1 = to_host(torch.einsum("spq, sqp", H1_scaled, rhoEmb), float) \
+        * (2.0 / spin)
     Efrag = E1 + E2 + lattice.getH0()
 
     if int_bath:
@@ -312,15 +313,16 @@ class MuSolver(object):
         def solve(mu):
             rho_col, E_col = [], []
             ntot = 0.0
-            for latt, H, B, sol, sargs, iidx in zip(lattice, ImpHam, basis,
-                                                    solver, solver_args,
-                                                    imp_idx):
-                rho_i, E_i = SolveImpHam_with_dmu(latt, H, B, mu, sol, sargs,
-                                                  **kwargs)
-                rho_col.append(rho_i)
-                E_col.append(E_i)
-                ntot += transformResults(rho_i, None, B, None, None,
-                                         lattice=latt, imp_idx=iidx)
+            with stage("mu step", basis[0].device, dmu=float(mu)):
+                for latt, H, B, sol, sargs, iidx in zip(
+                        lattice, ImpHam, basis, solver, solver_args,
+                        imp_idx):
+                    rho_i, E_i = SolveImpHam_with_dmu(latt, H, B, mu, sol,
+                                                      sargs, **kwargs)
+                    rho_col.append(rho_i)
+                    E_col.append(E_i)
+                    ntot += transformResults(rho_i, None, B, None, None,
+                                             lattice=latt, imp_idx=iidx)
             return rho_col, E_col, ntot
 
         def apply_all(dmu):

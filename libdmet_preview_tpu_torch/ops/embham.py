@@ -25,7 +25,7 @@ import torch
 
 from libdmet_preview_tpu_torch.utils import logger as log
 from libdmet_preview_tpu_torch.utils.misc import as_f64
-from libdmet_preview_tpu_torch.utils.timer import stage
+from libdmet_preview_tpu_torch.utils.timer import stage, to_host
 from libdmet_preview_tpu_torch.models.integral import Integral
 from libdmet_preview_tpu_torch.ops.eri_transform import get_emb_eri_chol
 
@@ -171,8 +171,9 @@ def transform_eri_full(basis, eri_F, lattice=None):
     multi-dimensional cell meshes (see transform_eri_nearest)."""
     spin, ncells, nlo, neo = basis.shape
     add = _add_table(lattice, ncells, basis.device)
-    nz = torch.nonzero(torch.amax(torch.abs(eri_F), dim=(3, 4, 5, 6)) > 0.0
-                       ).tolist()
+    nz = to_host(torch.nonzero(
+        torch.amax(torch.abs(eri_F), dim=(3, 4, 5, 6)) > 0.0),
+        torch.Tensor.tolist)
     out = []
     for s1, s2 in _spin_pairs(spin):
         acc = torch.zeros((neo,) * 4, dtype=basis.dtype, device=basis.device)
@@ -293,7 +294,7 @@ def _bath_vectors(A):
     sigma = torch.sqrt(torch.clamp(w, min=0.0))
     smax = torch.clamp(sigma[:, 0], min=1e-300)
     # one host read decides the rule for every spin channel
-    ill = (sigma[:, -1] < 1e-6 * smax).tolist()
+    ill = to_host(sigma[:, -1] < 1e-6 * smax, torch.Tensor.tolist)
     eye = torch.eye(ncol, dtype=A.dtype, device=A.device)
     us, sigmas = [], []
     for s in range(spin):
@@ -336,7 +337,7 @@ def _get_emb_basis_svd(lattice, rdm1, **kwargs):
     bath_t = torch.as_tensor(imp_idx_bath, dtype=torch.long, device=dev)
     if len(imp_idx_bath) > 0 and max(imp_idx_bath) >= nlo:
         # bath columns outside the reference cell: the full density matrix
-        big = as_f64(lattice.expand(rdm1.cpu().numpy()), dev)
+        big = as_f64(lattice.expand(to_host(rdm1)), dev)
         rdm1_env_imp = big[:, env_t][:, :, bath_t]
     else:
         rdm1_env_imp = rdm1.reshape(spin, ncells * nlo,
@@ -344,7 +345,7 @@ def _get_emb_basis_svd(lattice, rdm1, **kwargs):
 
     nbath_cols = len(imp_idx_bath)
     u, sigma = _bath_vectors(rdm1_env_imp)
-    sigma_h = sigma.cpu().numpy()
+    sigma_h = to_host(sigma)
 
     basis = torch.zeros((spin, ncells * nlo, nimp + nbath_cols),
                         dtype=rdm1.dtype, device=dev)
@@ -388,7 +389,7 @@ def basis_matching(basis):
     S = basisA.reshape(-1, nb).T @ basisB.reshape(-1, nb)
     u, gamma, vt = torch.linalg.svd(S)
     log.debug(0, "basis matching overlap: mean %.6f min %.6f",
-              float(gamma.mean()), float(gamma.min()))
+              to_host(gamma.mean(), float), to_host(gamma.min(), float))
     return torch.stack([basisA @ u, basisB @ vt.T])
 
 
@@ -568,7 +569,7 @@ def get_rho_glob_R(basis, lattice, rho_emb):
                           device=b.device)
     row = torch.einsum("spi, sij, sRqj -> sRqp", b[:, 0], r, b)
     col = torch.einsum("sRpi, sij, sqj -> sRqp", b[:, neg], r, b[:, 0])
-    return (0.5 * (row + col)).cpu().numpy()
+    return to_host(0.5 * (row + col))
 
 
 def get_veff_from_rdm1_emb(lattice, rdm1_emb, basis):
@@ -596,7 +597,7 @@ def get_veff_from_rdm1_emb(lattice, rdm1_emb, basis):
         vj = torch.einsum("x, xpq -> pq", w, L)
         vk = torch.einsum("xpr, srt, xtq -> spq", L, rho_full, L)
         veff_full = vj[None] - vk
-    veff_stripe = np.asarray(lattice.extract_stripe(veff_full.cpu().numpy()))
+    veff_stripe = np.asarray(lattice.extract_stripe(to_host(veff_full)))
     return veff_stripe, rho_glob
 
 
@@ -650,12 +651,12 @@ def get_rdm1_idem(rho_glob_R, nelec_tot, kmesh, device=torch.device("cuda")):
     kmesh = tuple(int(x) for x in kmesh)
     r_re, r_im = fourier.R2k(rho_glob_R, kmesh)
     ew2, V = zlinalg.zeigh(as_f64(r_re, device), as_f64(r_im, device))
-    ew2 = ew2.cpu().numpy()
+    ew2 = to_host(ew2)
     # occupy the LARGEST natural occupations (doubled spectrum: 2x count)
     occ2 = np.asarray([mfd.assignocc(-ew2[s], int(round(2 * nelec_tot[s])),
                                      np.inf, 0.0)[0] for s in range(spin)])
     rho_re, rho_im = zlinalg.zfunc_from_eig(V, as_f64(occ2, device))
-    return fourier.k2R((rho_re.cpu().numpy(), rho_im.cpu().numpy()), kmesh)
+    return fourier.k2R((to_host(rho_re), to_host(rho_im)), kmesh)
 
 
 def add_bath(lattice, basis, ew, ev, nocc, nfrac, tol_bath=1e-6):
@@ -673,7 +674,7 @@ def add_bath(lattice, basis, ew, ev, nocc, nfrac, tol_bath=1e-6):
     (vectors already inside the embedding span are dropped)."""
     from libdmet_preview_tpu_torch.ops.zlinalg import dft_tables
     dev = basis.device if isinstance(basis, torch.Tensor) else None
-    basis = basis.cpu().numpy() if dev is not None else np.asarray(basis)
+    basis = to_host(basis) if dev is not None else np.asarray(basis)
     squeeze = basis.ndim == 3
     if squeeze:
         basis = basis[None]
@@ -755,4 +756,4 @@ def get_rdm2_glob_R(basis, lattice, rdm2_emb):
                     out[J, K, L] += torch.einsum(
                         "iqrs, jq, kr, ls -> ijkl", first[a], b[sub(J, a)],
                         b[sub(K, a)], b[sub(L, a)])
-    return (0.25 * out).cpu().numpy()
+    return to_host(0.25 * out)

@@ -35,6 +35,7 @@ import torch
 
 from libdmet_preview_tpu_torch.utils import logger as log
 from libdmet_preview_tpu_torch.utils.misc import Iterable, as_f64
+from libdmet_preview_tpu_torch.utils.timer import stage, to_host
 from libdmet_preview_tpu_torch.ops import embham
 from libdmet_preview_tpu_torch.ops import zlinalg as _zl
 
@@ -210,41 +211,43 @@ def _cg_engine(fg, x0, max_iter, ytol, gtol, dx_tol=1e-7):
     d = -g
     step0 = 1.0
     n_small = 0
-    done = float(torch.max(torch.abs(g))) < gtol * 0.1
+    done = to_host(torch.max(torch.abs(g)), float) < gtol * 0.1
     it = 0
     while not done and it < max_iter:
-        dg0 = torch.dot(g, d)
-        d = torch.where(dg0 >= 0, -g, d)
-        dg = torch.where(dg0 >= 0, -torch.dot(g, g), dg0)
+        with stage("cg step", x.device):
+            dg0 = torch.dot(g, d)
+            d = torch.where(dg0 >= 0, -g, d)
+            dg = torch.where(dg0 >= 0, -torch.dot(g, g), dg0)
 
-        # Armijo 1e-4, alpha * 0.4 per rejection, at most 30 trials
-        alpha = step0
-        f_new, g_new = f, g
-        found = False
-        for _ in range(30):
-            f_try, g_try = fg(x + alpha * d)
-            if bool(f_try <= f + 1e-4 * alpha * dg):
-                f_new, g_new = f_try, g_try
-                found = True
-                break
-            alpha = alpha * 0.4
+            # Armijo 1e-4, alpha * 0.4 per rejection, at most 30 trials
+            alpha = step0
+            f_new, g_new = f, g
+            found = False
+            for _ in range(30):
+                f_try, g_try = fg(x + alpha * d)
+                if to_host(f_try <= f + 1e-4 * alpha * dg, bool):
+                    f_new, g_new = f_try, g_try
+                    found = True
+                    break
+                alpha = alpha * 0.4
 
-        step0 = min(max(alpha * 2.5, 1e-4), 1.0)
-        dx = torch.max(torch.abs(alpha * d)) if d.numel() else \
-            torch.zeros((), dtype=x.dtype, device=x.device)
-        beta_pr = torch.clamp(torch.dot(g_new, g_new - g)
-                              / torch.clamp(torch.dot(g, g), min=1e-30),
-                              min=0.0)
-        d_new = -g_new + beta_pr * d
-        df, dx_h, gmax = torch.stack(
-            [f - f_new, dx, torch.max(torch.abs(g_new))]).tolist()
-        n_small = n_small + 1 if df < ytol else 0
-        done = (not found) or n_small >= 2 or dx_h < dx_tol \
-            or gmax < gtol * 0.1
-        if found:
-            x = x + alpha * d
-            f, g, d = f_new, g_new, d_new
-        it += 1
+            step0 = min(max(alpha * 2.5, 1e-4), 1.0)
+            dx = torch.max(torch.abs(alpha * d)) if d.numel() else \
+                torch.zeros((), dtype=x.dtype, device=x.device)
+            beta_pr = torch.clamp(torch.dot(g_new, g_new - g)
+                                  / torch.clamp(torch.dot(g, g), min=1e-30),
+                                  min=0.0)
+            d_new = -g_new + beta_pr * d
+            df, dx_h, gmax = to_host(torch.stack(
+                [f - f_new, dx, torch.max(torch.abs(g_new))]),
+                torch.Tensor.tolist)
+            n_small = n_small + 1 if df < ytol else 0
+            done = (not found) or n_small >= 2 or dx_h < dx_tol \
+                or gmax < gtol * 0.1
+            if found:
+                x = x + alpha * d
+                f, g, d = f_new, g_new, d_new
+            it += 1
     _cg_engine.steps += it
     return x, f, torch.max(torch.abs(g))
 
@@ -313,8 +316,8 @@ def _lm_loop(state, p0, spin, max_iter, ytol, gtol, lam0=1e-3):
 
     p = p0
     err, J, r = state(p0)
-    err_h, gmax_h = torch.stack(
-        [err, torch.max(torch.abs(grad(err, J, r)))]).tolist()
+    err_h, gmax_h = to_host(torch.stack(
+        [err, torch.max(torch.abs(grad(err, J, r)))]), torch.Tensor.tolist)
     done = gmax_h < gtol * 0.1
     lam = lam0
     n_small = 0
@@ -326,8 +329,9 @@ def _lm_loop(state, p0, spin, max_iter, ytol, gtol, lam0=1e-3):
         dp = torch.linalg.solve(Ad, -(J @ r))
         p_try = p + dp
         err_t, J_t, r_t = state(p_try)
-        err_t_h, gmax_t_h = torch.stack(
-            [err_t, torch.max(torch.abs(grad(err_t, J_t, r_t)))]).tolist()
+        err_t_h, gmax_t_h = to_host(torch.stack(
+            [err_t, torch.max(torch.abs(grad(err_t, J_t, r_t)))]),
+            torch.Tensor.tolist)
         ok = err_t_h < err_h
         if ok:
             df = err_h - err_t_h
@@ -757,7 +761,7 @@ def FitVcorEmb(rho, lattice, basis, vcor, beta, MaxIter=300, imp_fit=False,
         # fit against the idempotent part of the correlated rdm1: occupy
         # its natural orbitals with assignocc (host, tiny)
         from libdmet_preview_tpu_torch.ops import mfd
-        rho_h = rho.cpu().numpy()
+        rho_h = to_host(rho)
         rho_idem = np.empty_like(rho_h)
         for s in range(spin):
             ew, ev = np.linalg.eigh(rho_h[s])
@@ -799,7 +803,7 @@ def FitVcorEmb(rho, lattice, basis, vcor, beta, MaxIter=300, imp_fit=False,
 
     def fun_grad(p):
         e, g = fg_dev(as_f64(p, dev))
-        return float(e), g.cpu().numpy()
+        return to_host(e, float), to_host(g)
 
     err_begin = fun_grad(vcor.param)[0]
     if kwargs.get("test_grad", False):
@@ -828,7 +832,8 @@ def FitVcorEmb(rho, lattice, basis, vcor, beta, MaxIter=300, imp_fit=False,
         else:
             x, err_end, gnorm = _fit_cg_zero_t(
                 p0, *args, ytol, gtol, nelec_t, thr_deg, int(MaxIter))
-        x, err_end, gnorm = x.cpu().numpy(), float(err_end), float(gnorm)
+        x, err_end, gnorm = (to_host(x), to_host(err_end, float),
+                             to_host(gnorm, float))
     else:
         x, err_end = minimize(fun_grad, vcor.param, method=method,
                               max_iter=MaxIter)
@@ -906,7 +911,7 @@ def full_fit_objective(rho, lattice, basis, vcor, beta, filling,
     def fun_grad(p):
         FitVcorFull.n_eval += 1
         e, g = fg_dev(as_f64(p, dev))
-        return float(e), g.cpu().numpy()
+        return to_host(e, float), to_host(g)
 
     return fun_grad
 
@@ -976,7 +981,8 @@ def FitVcorFull(rho, lattice, basis, vcor, beta, filling, MaxIter=20,
                               ires=True)
         rho1 = embham.foldRho_k(
             tuple(as_f64(x, dev) for x in res["rho_k"]), basis_k) * mask
-        return float(torch.linalg.norm(rho1 - rho_target) / np.sqrt(spin))
+        return to_host(torch.linalg.norm(rho1 - rho_target) / np.sqrt(spin),
+                       float)
 
     from scipy import optimize as opt
     p0 = vcor.param.copy()

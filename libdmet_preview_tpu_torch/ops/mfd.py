@@ -16,6 +16,7 @@ from libdmet_preview_tpu_torch.utils import logger as log
 from libdmet_preview_tpu_torch.utils.misc import (Iterable, add_spin_dim,
                                                   as_f64)
 from libdmet_preview_tpu_torch.ops import ftsystem, zlinalg
+from libdmet_preview_tpu_torch.utils.timer import to_host
 
 
 def check_nelec(nelec, ncells=None, tol=1e-5):
@@ -134,7 +135,7 @@ def HF(lattice, vcor, filling, restricted, mu0=None, beta=np.inf, ires=False,
 
     ew2_i, V = zlinalg.zeigh(as_f64(f_re[:, ibz], device),
                              as_f64(f_im[:, ibz], device))
-    ew2_i = ew2_i.cpu().numpy()
+    ew2_i = to_host(ew2_i)
     ew2 = np.empty((spin, nkpts, ew2_i.shape[-1]))
     ew2[:, ibz] = ew2_i
     if tr_ok:
@@ -159,7 +160,7 @@ def HF(lattice, vcor, filling, restricted, mu0=None, beta=np.inf, ires=False,
 
     r_re_i, r_im_i = zlinalg.zfunc_from_eig(V, as_f64(ewocc2[:, ibz],
                                                       device))
-    r_re_i, r_im_i = r_re_i.cpu().numpy(), r_im_i.cpu().numpy()
+    r_re_i, r_im_i = to_host(r_re_i), to_host(r_im_i)
     nlo = r_re_i.shape[-1]
     rho_re = np.empty((spin, nkpts, nlo, nlo))
     rho_im = np.empty((spin, nkpts, nlo, nlo))
@@ -198,7 +199,7 @@ def HF(lattice, vcor, filling, restricted, mu0=None, beta=np.inf, ires=False,
     else:
         homo, lumo = _homo_lumo(ew_sorted, mu)
         gap = lumo - homo
-    res = {"gap": gap, "e": ew2, "coef": V.cpu().numpy(), "nerr": nerr,
+    res = {"gap": gap, "e": ew2, "coef": to_host(V), "nerr": nerr,
            "rho_k": (rho_re, rho_im),
            "E0": float(np.real(E0)), "E": E, "mo_occ": ewocc2,
            "homo": homo, "lumo": lumo}
@@ -273,7 +274,7 @@ def GHF(lattice, vcor, filling, mu0=None, beta=np.inf, ires=False, **kwargs):
     GF_re[0, :, :nao, nao:] = vmat[2]
     GF_re[0, :, nao:, :nao] = vmat[2].T
     ew2, V = zlinalg.zeigh(as_f64(GF_re, device), as_f64(GF_im, device))
-    ew2 = ew2.cpu().numpy()
+    ew2 = to_host(ew2)
     nelec2 = check_nelec(ew2.size * filling)[0]
     ew_sorted = np.sort(ew2, axis=None)
     if mu0 is None:
@@ -282,11 +283,11 @@ def GHF(lattice, vcor, filling, mu0=None, beta=np.inf, ires=False, **kwargs):
                                  fix_mu=kwargs.get("fix_mu", False),
                                  thr_deg=kwargs.get("tol_deg", 1e-6))
     rho_re, rho_im = zlinalg.zfunc_from_eig(V, as_f64(ewocc2, device))
-    rho_re, rho_im = rho_re.cpu().numpy(), rho_im.cpu().numpy()
+    rho_re, rho_im = to_host(rho_re), to_host(rho_im)
     rhoT = np.asarray(lattice.k2R((rho_re[0], rho_im[0])))
     E = float(np.sum(GF_re[0] * rho_re[0] + GF_im[0] * rho_im[0])) / nkpts
     if ires:
-        res = {"e": ew2, "coef": V.cpu().numpy(),
+        res = {"e": ew2, "coef": to_host(V),
                "rho_k": (rho_re[0], rho_im[0]),
                "mo_occ": ewocc2, "nerr": nerr}
         return rhoT, mu, E, res

@@ -36,6 +36,7 @@ import torch
 
 from libdmet_preview_tpu_torch.utils import logger as log
 from libdmet_preview_tpu_torch.utils.misc import as_f64
+from libdmet_preview_tpu_torch.utils.timer import stage, to_host
 from libdmet_preview_tpu_torch.models.integral import restore_eri
 
 
@@ -316,7 +317,7 @@ def davidson(matvec, hdiag, x0=None, tol=1e-11, max_cycle=200,
     if cold:
         # the seeds follow the host argsort of the diagonal, ties as NumPy
         # breaks them
-        order = np.argsort(hd.cpu().numpy())
+        order = np.argsort(to_host(hd))
 
         def _noisy(k):
             ek = np.zeros(n)
@@ -338,89 +339,91 @@ def davidson(matvec, hdiag, x0=None, tol=1e-11, max_cycle=200,
     pend = [x0.reshape(-1).to(dtype)]
     n_rand = 0
     for it in range(max_cycle):
-        added = 0
-        for y in pend:
-            # twice-orthogonalize against the subspace (numerical safety)
-            for _ in range(2):
-                if m:
-                    y = y - X[:m].T @ (X[:m] @ y)
-            ny = float(torch.linalg.vector_norm(y))
-            if ny < 1e-12:
-                continue
-            y = y / ny
-            X[m] = y
-            AX[m] = matvec(y).reshape(-1)
-            m += 1
-            added += 1
-        if not added:
-            # every candidate collapsed into the span
-            if queue:
-                pend = [queue.pop(0)]
-                continue
-            if m >= n or rnorm < ctol or n_rand >= 3:
-                break
-            n_rand += 1
-            pend = [as_f64(rng.randn(n), dev)]
-            continue
-        Hs = (X[:m] @ AX[:m].T).cpu().numpy()
-        Hs = 0.5 * (Hs + Hs.T)
-        w, v = np.linalg.eigh(Hs)
-        # residuals of the ascending Ritz roots (subspace algebra only, no
-        # matvecs), all k at once; the host then walks them up to the
-        # first CONVERGED root strictly above root 0
-        k = min(guard_cap, m)
-        vk = as_f64(v[:, :k].T, dev)                       # (k, m)
-        U = vk @ X[:m]
-        R = vk @ AX[:m] - as_f64(w[:k], dev)[:, None] * U
-        rn_all = torch.linalg.vector_norm(R, dim=1).tolist()
-        rnorms = []
-        guards_ok = m >= n
-        for r in range(k):
-            rnorms.append(rn_all[r])
-            if r > 0 and rnorms[r] < ctol and w[r] > w[0] + gap_tol:
-                guards_ok = True
-                break
-        if not cold:
-            guards_ok = True
-        theta, u, rnorm = float(w[0]), U[0], rnorms[0]
-        # the residual threshold sets the VECTOR quality: near-degenerate
-        # states mix as rnorm/gap, so keep it tight
-        conv0 = (e_last is not None and abs(theta - e_last) < tol
-                 and rnorm < ctol)
-        if conv0 and guards_ok and not queue:
-            return theta, u
-        e_last = theta
-        # expand the (up to 2) lowest unconverged roots among those seen
-        pend = []
-        for r in range(len(rnorms)):
-            if rnorms[r] > ctol:
-                denom = hd - float(w[r])
-                denom = torch.where(torch.abs(denom) < 1e-10,
-                                    torch.full_like(denom, 1e-10), denom)
-                pend.append(R[r] / denom)
-                if len(pend) >= 2:
-                    break
-        if queue:
-            pend.append(queue.pop(0))
-        if m >= max_space:
-            # thick restart: keep the lowest Ritz pairs, enough to cover
-            # the roots being converged
-            keep = min(max(n_keep, len(rnorms) + 1), m)
-            vkeep = as_f64(v[:, :keep].T, dev)
-            Uk, AUk = vkeep @ X[:m], vkeep @ AX[:m]
-            m = 0
-            for r in range(keep):
-                uk, auk = Uk[r], AUk[r]
-                if m:                                  # safety re-orth
-                    c = X[:m] @ uk
-                    uk = uk - X[:m].T @ c
-                    auk = auk - AX[:m].T @ c
-                nk_ = float(torch.linalg.vector_norm(uk))
-                if nk_ < 1e-10:
+        with stage("davidson iteration", dev):
+            added = 0
+            for y in pend:
+                # twice-orthogonalize against the subspace (numerical safety)
+                for _ in range(2):
+                    if m:
+                        y = y - X[:m].T @ (X[:m] @ y)
+                ny = to_host(torch.linalg.vector_norm(y), float)
+                if ny < 1e-12:
                     continue
-                X[m] = uk / nk_
-                AX[m] = auk / nk_
+                y = y / ny
+                X[m] = y
+                AX[m] = matvec(y).reshape(-1)
                 m += 1
+                added += 1
+            if not added:
+                # every candidate collapsed into the span
+                if queue:
+                    pend = [queue.pop(0)]
+                    continue
+                if m >= n or rnorm < ctol or n_rand >= 3:
+                    break
+                n_rand += 1
+                pend = [as_f64(rng.randn(n), dev)]
+                continue
+            Hs = to_host(X[:m] @ AX[:m].T)
+            Hs = 0.5 * (Hs + Hs.T)
+            w, v = np.linalg.eigh(Hs)
+            # residuals of the ascending Ritz roots (subspace algebra only, no
+            # matvecs), all k at once; the host then walks them up to the
+            # first CONVERGED root strictly above root 0
+            k = min(guard_cap, m)
+            vk = as_f64(v[:, :k].T, dev)                       # (k, m)
+            U = vk @ X[:m]
+            R = vk @ AX[:m] - as_f64(w[:k], dev)[:, None] * U
+            rn_all = to_host(torch.linalg.vector_norm(R, dim=1),
+                             torch.Tensor.tolist)
+            rnorms = []
+            guards_ok = m >= n
+            for r in range(k):
+                rnorms.append(rn_all[r])
+                if r > 0 and rnorms[r] < ctol and w[r] > w[0] + gap_tol:
+                    guards_ok = True
+                    break
+            if not cold:
+                guards_ok = True
+            theta, u, rnorm = float(w[0]), U[0], rnorms[0]
+            # the residual threshold sets the VECTOR quality: near-degenerate
+            # states mix as rnorm/gap, so keep it tight
+            conv0 = (e_last is not None and abs(theta - e_last) < tol
+                     and rnorm < ctol)
+            if conv0 and guards_ok and not queue:
+                return theta, u
+            e_last = theta
+            # expand the (up to 2) lowest unconverged roots among those seen
+            pend = []
+            for r in range(len(rnorms)):
+                if rnorms[r] > ctol:
+                    denom = hd - float(w[r])
+                    denom = torch.where(torch.abs(denom) < 1e-10,
+                                        torch.full_like(denom, 1e-10), denom)
+                    pend.append(R[r] / denom)
+                    if len(pend) >= 2:
+                        break
+            if queue:
+                pend.append(queue.pop(0))
+            if m >= max_space:
+                # thick restart: keep the lowest Ritz pairs, enough to cover
+                # the roots being converged
+                keep = min(max(n_keep, len(rnorms) + 1), m)
+                vkeep = as_f64(v[:, :keep].T, dev)
+                Uk, AUk = vkeep @ X[:m], vkeep @ AX[:m]
+                m = 0
+                for r in range(keep):
+                    uk, auk = Uk[r], AUk[r]
+                    if m:                                  # safety re-orth
+                        c = X[:m] @ uk
+                        uk = uk - X[:m].T @ c
+                        auk = auk - AX[:m].T @ c
+                    nk_ = to_host(torch.linalg.vector_norm(uk), float)
+                    if nk_ < 1e-10:
+                        continue
+                    X[m] = uk / nk_
+                    AX[m] = auk / nk_
+                    m += 1
     if rnorm > ctol:
         log.warn("FCI Davidson not fully converged: resid=%.2e", rnorm)
     return theta, u
@@ -443,6 +446,7 @@ def make_sigma(h1e, eri, norb, nelec, device):
     nea, neb = nelec
     links_a = links_on(norb, nea, device)
     links_b = links_on(norb, neb, device)
+    attrs = {"norb": norb, "nelec_a": nea, "nelec_b": neb}
     if _is_restricted_ints(h1e):
         h1 = as_f64(h1e, device)
         g = as_f64(eri, device)
@@ -450,7 +454,8 @@ def make_sigma(h1e, eri, norb, nelec, device):
         hdiag = make_hdiag((h1, h1), (g, g, g), norb, nelec)
 
         def sigma(c):
-            return _sigma_rhf(h2e, c, links_a, links_b, norb)
+            with stage("fci sigma", device, **attrs):
+                return _sigma_rhf(h2e, c, links_a, links_b, norb)
     else:
         h1 = tuple(as_f64(x, device) for x in h1e)
         g = tuple(as_f64(x, device) for x in eri)
@@ -458,7 +463,8 @@ def make_sigma(h1e, eri, norb, nelec, device):
         hdiag = make_hdiag(h1, g, norb, nelec)
 
         def sigma(c):
-            return _sigma_uhf(ha, hab, hb, c, links_a, links_b, norb)
+            with stage("fci sigma", device, **attrs):
+                return _sigma_uhf(ha, hab, hb, c, links_a, links_b, norb)
     return sigma, hdiag
 
 
@@ -543,7 +549,7 @@ def _s1(block, norb, device):
     """One H2 block as an s1 (n,)*4 float64 tensor on `device`."""
     if not (isinstance(block, torch.Tensor) and block.ndim == 4):
         if isinstance(block, torch.Tensor):
-            block = block.detach().cpu().numpy()
+            block = to_host(block.detach())
         block = restore_eri(block, norb, symmetry=1)
     return as_f64(block, device)
 
@@ -680,7 +686,7 @@ class FCI(object):
             E2 = (0.5 * torch.sum(h2[0] * r2[0])
                   + 0.5 * torch.sum(h2[1] * r2[1])
                   + torch.sum(h2[2] * r2[2]))
-        return float(E1 + E2) + float(Ham.H0)
+        return to_host(E1 + E2, float) + float(Ham.H0)
 
     def cleanup(self):
         pass

@@ -86,7 +86,7 @@ def test_get_emb_eri_chol_stages():
     assert all(t >= 0.0 for v in sec.values() for t in v)
     tet.get_emb_eri_chol(torch.as_tensor(L), basis)
     assert sum(len(v) for v in sec.values()) == 8
-    assert timer._seconds is None
+    assert timer._rec is None
 
 
 def test_set_Ham_abinitio_keeps_the_factors_on_the_lattice():
