@@ -378,6 +378,19 @@ Phases, in order; any failure raises and the process exits non-zero:
           syrk launch per rank in each sharded ERI call; a rank that fails
           or hangs fails the phase.
 
+  18. the FCI sigma kernel (csrc/fci_sigma.cu; built in phase 2 with its
+     ptxas lines and occupancy, every CUDA sigma build of phases 3-17
+     recorded by shape): at every (norb, nelec) the card's FCI ran and at
+     FCI_SIGMA_SHAPES, the kernel against the plain sigma on the card for
+     unrestricted and restricted integrals (1e-12 relative to max
+     |sigma|), two calls bit-identical, three launches a build; timed at
+     the three-band shape (12 orbitals, 6 + 6) beside its bound (the count
+     perfbench's roofline reads) and beside the least count the function
+     needs, and beside the plain version.  Phase 8c's solve on the card
+     counts three launches for every sigma build; the launches and builds
+     of phases 3-17 are counted per phase (phase 18's own left out) and
+     must come to three launches a build on every phase.
+
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}.
 """
@@ -1345,6 +1358,186 @@ def phase_fci_dense(device, U=6.0):
         raise AssertionError("FCI on the card disagrees with dense eigh")
 
 
+# the FCI sigma kernel (csrc/fci_sigma.cu): the shapes checked against the
+# plain version (with the whole script also every (norb, nelec) the card's
+# FCI ran, FCI_SIGMA_SEEN; the last four narrow the plan's tile to 8, 4, 2
+# and 1 columns), the timed shape (the three-band cells'), and its design
+FCI_SIGMA_SHAPES = [(12, (6, 6)), (12, (7, 5)), (8, (4, 4)), (16, (8, 0)),
+                    (10, (5, 5)), (8, (4, 0)), (6, (3, 3)), (6, (2, 2)),
+                    (5, (3, 2)), (4, (2, 2)), (3, (1, 1)), (2, (1, 1)),
+                    (6, (4, 0)), (4, (4, 3)), (13, (6, 6)), (14, (6, 1)),
+                    (15, (7, 1)), (16, (8, 1))]
+FCI_SIGMA_TIMED = (12, (6, 6))
+FCI_SIGMA_DESIGN = (
+    "DMMA mma.sync m16n8k4 f64; 8 warps, one block per SM; a block owns a "
+    "side, 16 columns and a string range, its sigma rows in shared memory; "
+    "strings in batches sharing no excitation target; links gathered from "
+    "c, integral rows from a shared-memory slice; 3 launches a build")
+FCI_SIGMA_SEEN = set()
+FCI_SIGMA_BUILDS = [0]
+
+
+def record_fci_sigma_shapes():
+    """Record the (norb, nelec) of every sigma build the kernel runs from
+    here on in FCI_SIGMA_SEEN, and count the builds in FCI_SIGMA_BUILDS."""
+    from libdmet_preview_tpu_torch.ops.fci_sigma import FciSigma
+    call = FciSigma.__call__
+
+    def recorded(self, c):
+        if c.device.type == "cuda":
+            FCI_SIGMA_SEEN.add((self.norb, self.nelec))
+            FCI_SIGMA_BUILDS[0] += 1
+        return call(self, c)
+    FciSigma.__call__ = recorded
+
+
+def _random_fci_ints(norb, seed, spin_dep):
+    """Random real integrals with the FCI's symmetries: h1 symmetric, each
+    (pq|rs) block symmetric in p <-> q and r <-> s, the same-spin blocks
+    also in (pq) <-> (rs); (h1, eri) or ((h1a, h1b), (g_aa, g_ab, g_bb))."""
+    rng = np.random.RandomState(seed)
+
+    def h1():
+        h = rng.rand(norb, norb) - 0.5
+        return h + h.T
+
+    def g(same):
+        x = rng.rand(norb, norb, norb, norb) - 0.5
+        x = x + x.transpose(1, 0, 2, 3)
+        x = x + x.transpose(0, 1, 3, 2)
+        if same:
+            x = x + x.transpose(2, 3, 0, 1)
+        return 0.1 * x
+
+    if not spin_dep:
+        return h1(), g(True)
+    return (h1(), h1()), (g(True), g(False), g(True))
+
+
+def fci_sigma_check(norb, nelec, device, spin_dep, seed=0):
+    """The kernel against the plain version on the card at (norb, nelec):
+    (relative max error, max abs error, two calls bit-identical, launches,
+    sigma, plain sigma, c)."""
+    from libdmet_preview_tpu_torch.ops.fci_sigma import FciSigma
+    from libdmet_preview_tpu_torch.solvers import fci
+    from libdmet_preview_tpu_torch.utils.misc import as_f64
+    h1e, eri = _random_fci_ints(norb, seed, spin_dep)
+    sigma, _ = fci.make_sigma(h1e, eri, norb, nelec, device)
+    na = fci.num_strings(norb, nelec[0])
+    nb = fci.num_strings(norb, nelec[1])
+    c = torch.as_tensor(np.random.RandomState(seed + 1).randn(na, nb),
+                        device=device)
+    n0 = FciSigma.launches
+    s1 = sigma(c)
+    s2 = sigma(c)
+    launches = FciSigma.launches - n0
+    la = fci.links_on(norb, nelec[0], device)
+    lb = fci.links_on(norb, nelec[1], device)
+    if spin_dep:
+        blocks = fci.absorb_h1e_uhf(tuple(as_f64(x, device) for x in h1e),
+                                    tuple(as_f64(x, device) for x in eri),
+                                    norb, sum(nelec))
+
+        def plain(x):
+            return fci._sigma_uhf(*blocks, x, la, lb, norb)
+    else:
+        h2e = fci.absorb_h1e_rhf(as_f64(h1e, device), as_f64(eri, device),
+                                 norb, sum(nelec))
+
+        def plain(x):
+            return fci._sigma_rhf(h2e, x, la, lb, norb)
+    ref = plain(c)
+    torch.cuda.synchronize()
+    err = float(torch.max(torch.abs(s1 - ref)))
+    rel = err / max(float(torch.max(torch.abs(ref))), 1e-300)
+    return rel, err, torch.equal(s1, s2), launches, sigma, plain, c
+
+
+def phase_fci_sigma_build():
+    """Build the FCI sigma kernel; ptxas registers, spills and shared
+    memory of each entry; the occupancy of each k-step instantiation at the
+    timed shape's shared memory."""
+    from libdmet_preview_tpu_torch.ops import _build
+    from libdmet_preview_tpu_torch.ops import fci_sigma as fs
+    path, seconds, log = _build.build("fci_sigma")
+    print("build fci_sigma: %.2f s -> %s" % (seconds, path.name))
+    kernel = None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            kernel = line.split("'")[1] if "'" in line else line.strip()
+        elif kernel and ("registers" in line or "spill" in line
+                         or "smem" in line):
+            print("  ptxas %s: %s" % (kernel, line.split(":", 1)[-1].strip()))
+    for symbol in _build.entry_points("fci_sigma"):
+        _build.load("fci_sigma", symbol)
+        print("  entry point %s loaded" % symbol)
+    plan = fs.sigma_plan(*FCI_SIGMA_TIMED)
+    for nkm in fs.NK_CLASSES:
+        blocks, threads, regs = fs.fci_sigma_occupancy(nkm, plan.smem)
+        print("  fci sigma kernel, k-steps <= %d: %d threads, %d registers, "
+              "%d B dynamic shared memory, %d resident blocks per SM"
+              % (nkm, threads, regs, plan.smem, blocks))
+        if blocks != 1:
+            raise AssertionError("the plan assumes one resident block per "
+                                 "SM")
+
+
+def phase_fci_sigma(device, card, shapes=None):
+    """Phase 18: the kernel against the plain version on the card at every
+    shape (unrestricted and restricted integrals), 1e-12 relative to max
+    |sigma|, two calls bit-identical, three launches a build; then timed
+    at the three-band shape beside its bound and the plain version.
+    Returns (max_abs_err, {"ms", "plain_ms", "bound_ms", ...})."""
+    from libdmet_preview_tpu_torch.ops import fci_sigma as fs
+    shapes = sorted(set(shapes or ()) | set(FCI_SIGMA_SHAPES)
+                    | {FCI_SIGMA_TIMED})
+    max_abs, bad, timed = 0.0, [], None
+    for norb, nelec in shapes:
+        plan = fs.sigma_plan(norb, nelec)
+        for spin_dep in (True, False):
+            rel, err, same, launches, sigma, plain, c = fci_sigma_check(
+                norb, nelec, device, spin_dep, seed=norb)
+            max_abs = max(max_abs, err)
+            print("fci sigma kernel (norb %d, nelec %s, %s) [%s]: rel %.3e "
+                  "max_abs_err %.3e, bit-identical repeat %s, %d launches "
+                  "for 2 builds; plan mt %d x %d passes, split %d, blocks "
+                  "%s, %d B shared memory"
+                  % (norb, nelec, "uhf" if spin_dep else "rhf", card, rel,
+                     err, same, launches, plan.mt, plan.npass, plan.nsplit,
+                     [sd.blocks for sd in plan.sides], plan.smem))
+            if not (rel <= 1e-12 and same and launches == 2 * fs.LAUNCHES):
+                bad.append((norb, nelec, spin_dep))
+            if (norb, nelec) == FCI_SIGMA_TIMED and spin_dep:
+                ms = _time_ms(lambda: sigma(c))
+                plain_ms = _time_ms(lambda: plain(c))
+                counted, run, least = fs.sigma_work(norb, nelec)
+                bound_ms = 1e3 * counted / PEAK_FP64_FLOPS
+                least_ms = 1e3 * least / PEAK_FP64_FLOPS
+                timed = {"shape": [norb, list(nelec)], "ms": ms,
+                         "plain_ms": plain_ms, "bound_ms": bound_ms,
+                         "bound_by": "operations", "flops": counted,
+                         "run_flops": run, "share_of_bound": bound_ms / ms,
+                         "least_flops": least, "least_bound_ms": least_ms,
+                         "share_of_least_bound": least_ms / ms}
+                print("fci sigma kernel (norb %d, nelec %s) [%s]: %.4f ms a "
+                      "build, plain %.4f ms (%.2fx), bound %.4f ms (%.2e "
+                      "FLOP counted at %.0f TFLOP/s): %.1f%% of bound; "
+                      "against the least count (%.2e FLOP, %.4f ms) %.1f%%; "
+                      "the MMAs run %.2e FLOP (padding %.1f%%)"
+                      % (norb, nelec, card, ms, plain_ms, plain_ms / ms,
+                         bound_ms, counted, PEAK_FP64_FLOPS / 1e12,
+                         100.0 * bound_ms / ms, least, least_ms,
+                         100.0 * least_ms / ms, run,
+                         100.0 * (run / counted - 1)))
+            del sigma, plain, c
+            torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError("fci sigma kernel disagrees with the plain "
+                             "version, repeats differently or launches other "
+                             "than %d a build at %s" % (fs.LAUNCHES, bad))
+    return max_abs, timed
+
+
 def phase_dmet_loop_hubbard(device, card):
     cpu = torch.device("cpu")
     results = {}
@@ -1942,8 +2135,17 @@ def fci_card_vs_cpu(first, device, card, budget_s):
           % (card, na * na, out["cuda"][3], out["cpu"][3], rel))
     if not rel <= 1e-10:
         raise AssertionError("sigma on the card disagrees with the CPU")
+    from libdmet_preview_tpu_torch.ops.fci_sigma import LAUNCHES, FciSigma
     H_d, sol_d = out["cuda"][:2]
+    n0, s0 = FciSigma.launches, sol_d.n_sigma
     rdm_d, E_d = sol_d.run(H_d, nelec=nelec)
+    builds = sol_d.n_sigma - s0
+    launches = FciSigma.launches - n0
+    print("three-band FCI [%s]: one solve on the card, %d sigma builds, %d "
+          "fci sigma kernel launches (%d a build)"
+          % (card, builds, launches, LAUNCHES))
+    if launches != LAUNCHES * builds or builds == 0:
+        raise AssertionError("a sigma build on the card left the kernel")
     est = out["cpu"][3] * sol_d.n_sigma
     if est > budget_s:
         print("three-band FCI [%s]: card E %.10f in %d sigma builds; the "
@@ -5496,17 +5698,27 @@ def phase_scale_out_ranks(device, card):
 
 
 def main():
+    from libdmet_preview_tpu_torch.ops.fci_sigma import LAUNCHES, FciSigma
     t_start = time.perf_counter()
     last = [t_start]
+    # the FCI sigma kernel's launches and builds of each phase, counted
+    # from 0 at each phase's start
+    fci_by_path = {}
 
     def _tick(label):
         now = time.perf_counter()
         print("phase clock: %-22s %8.1f s (%.1f s since start)"
               % (label, now - last[0], now - t_start), flush=True)
         last[0] = now
+        if FciSigma.launches or FCI_SIGMA_BUILDS[0]:
+            fci_by_path[label] = {"launches": FciSigma.launches,
+                                  "builds": FCI_SIGMA_BUILDS[0]}
+        FciSigma.launches = FCI_SIGMA_BUILDS[0] = 0
 
     device, card = phase_device()
     phase_build()
+    phase_fci_sigma_build()
+    record_fci_sigma_shapes()
     _tick("2 build")
     max_abs, times = phase_kernels(device)
     _tick("3 kernels")
@@ -5609,6 +5821,20 @@ def main():
         launches_17b, err_17, at_17 = phase_scale_out_ranks(device, card)
         _tick("17b scale-out 4 ranks")
         t17 = time.perf_counter() - t17
+    # the paths' counts and shapes, phase 18's own checks and timing left
+    # out
+    fci_paths = dict(fci_by_path)
+    fci_seen = set(FCI_SIGMA_SEEN)
+    err_fs, timed_fs = phase_fci_sigma(device, card, FCI_SIGMA_SEEN)
+    _tick("18 fci sigma")
+    print("fci sigma kernel launches (builds) by phase [%s]: %s"
+          % (card, ", ".join("%s %d (%d)" % (k, v["launches"], v["builds"])
+                             for k, v in fci_paths.items())))
+    off = {k: v for k, v in fci_paths.items()
+           if v["launches"] != LAUNCHES * v["builds"]}
+    if off or not fci_paths:
+        raise AssertionError("a phase's CUDA sigma builds left the kernel "
+                             "(%d launches a build): %s" % (LAUNCHES, off))
     max_abs["syrk_df"] = max(max_abs["syrk_df"], err_chol, err_gso,
                              err_hchain, err_dft, err_pbc, err_diamond,
                              err_ox, err_17)
@@ -5659,6 +5885,16 @@ def main():
             "library_ms": plain_ms, "design": DESIGN,
             "vs_library": ms / plain_ms,
             "share_of_bound": bound_ms / ms})
+    kernels.append({
+        "name": "fci_sigma", "route": "cuda",
+        "source": "libdmet_preview_tpu_torch/csrc/fci_sigma.cu",
+        "replaces": None,
+        "launches": sum(v["launches"] for v in fci_paths.values()),
+        "launches_by_path": {k: v["launches"] for k, v in fci_paths.items()},
+        "builds_by_path": {k: v["builds"] for k, v in fci_paths.items()},
+        "shapes": sorted([n, list(e)] for n, e in fci_seen),
+        "max_abs_err": err_fs, **timed_fs, "library_ms": None,
+        "design": FCI_SIGMA_DESIGN})
     # the symmetric kernel at the shape the DMET loop's path gives it
     naux_c, neo_c = CHOL_SHAPE
     bound_c, by_c, _ = kernel_bound("tri", naux_c, neo_c * (neo_c + 1) // 2)

@@ -39,6 +39,13 @@ _SIGNATURES = {
         # (symmetric, copy mode, tile, int info[3])
         "syrk_df_occupancy": ([_I, _I, _I, _P], _I),
     },
+    "fci_sigma": {
+        # (c, out, ws, A, B, int64 side_a[30], int64 side_b[30],
+        #  int64 common[11], stream)
+        "fci_sigma_f64": ([_P, _P, _P, _P, _P, _P, _P, _P, _P], _I),
+        # (k-step bound, dynamic shared memory bytes, int info[3])
+        "fci_sigma_occupancy": ([_I, _I, _P], _I),
+    },
 }
 
 _loaded = {}
@@ -101,3 +108,15 @@ def load(name, symbol):
 def entry_points(name):
     """The C entry points of kernel library `name`."""
     return list(_SIGNATURES[name])
+
+
+_n_sm = {}
+
+
+def sm_count(device):
+    """Streaming multiprocessors of CUDA `device` (asked once)."""
+    if device.index not in _n_sm:
+        import torch
+        _n_sm[device.index] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _n_sm[device.index]

@@ -153,16 +153,6 @@ def _check_operand(F, name):
         raise ValueError("syrk_df: %s must be contiguous" % name)
 
 
-_n_sm = {}
-
-
-def _sm_count(device):
-    if device.index not in _n_sm:
-        _n_sm[device.index] = torch.cuda.get_device_properties(
-            device).multi_processor_count
-    return _n_sm[device.index]
-
-
 def syrk_df(F, F2=None):
     """s4-packed DF-ERI F^T F (F2=None, exactly symmetric) or F^T F2 of
     (naux, npair) float64 operands.
@@ -181,7 +171,7 @@ def syrk_df(F, F2=None):
         raise ValueError("syrk_df: unsupported device %s" % F.device)
     naux, npair = F.shape
     schedule = syrk_schedule(naux, npair, F2 is None,
-                             n_sm=_sm_count(F.device))
+                             n_sm=_build.sm_count(F.device))
     return syrk_df_launch(F, F2, schedule)
 
 

@@ -16,6 +16,15 @@ contraction in the middle):
                                 incoming links, so the result does not
                                 depend on the order atomics would take and
                                 two calls agree bit for bit);
+    that is the plain version, which CPU tensors take; on a CUDA device
+    the same resolution runs as the hand-written kernel of
+    csrc/fci_sigma.cu (ops/fci_sigma), which writes no t1 or g.  The
+    kernel takes norb <= 16 at every nelec (at most 12,870 strings and 72
+    links a spin); its sigma rows of all strings of a spin share a
+    block's 227 KB of shared memory with the integral slice, so the tile
+    narrows from 16 columns (12 orbitals, 6 + 6) to 8 (13, 6 + 6) and 1
+    (16, 8 + 8), where it runs ~4.5x the counted FLOPs.  Above 16
+    orbitals make_sigma raises on CUDA: run such a solve on the CPU;
   * Davidson keeps its trial vectors and their sigma images on the device;
     the subspace matrix (at most ~30 x 30) is one product, read to the host
     once per iteration for eigh;
@@ -38,6 +47,7 @@ from libdmet_preview_tpu_torch.utils import logger as log
 from libdmet_preview_tpu_torch.utils.misc import as_f64
 from libdmet_preview_tpu_torch.utils.timer import stage, to_host
 from libdmet_preview_tpu_torch.models.integral import restore_eri
+from libdmet_preview_tpu_torch.ops.fci_sigma import FciSigma
 
 
 # ----------------------------------------------------------------------
@@ -442,7 +452,10 @@ def make_sigma(h1e, eri, norb, nelec, device):
     (na, nb) tensor to H c, hdiag is the (na, nb) diagonal.
 
     h1e: (n, n) or (h1a, h1b); eri: (n,)*4 or (g_aa, g_ab, g_bb) chemist;
-    arrays or tensors."""
+    arrays or tensors.  On a CUDA device sigma is the hand-written kernel
+    of csrc/fci_sigma.cu (ops/fci_sigma.FciSigma), on the CPU the plain
+    version; on CUDA, norb above 16 raises ValueError (the module's
+    docstring gives the kernel's limits)."""
     nea, neb = nelec
     links_a = links_on(norb, nea, device)
     links_b = links_on(norb, neb, device)
@@ -452,19 +465,23 @@ def make_sigma(h1e, eri, norb, nelec, device):
         g = as_f64(eri, device)
         h2e = absorb_h1e_rhf(h1, g, norb, nea + neb)
         hdiag = make_hdiag((h1, h1), (g, g, g), norb, nelec)
+        blocks = (h2e, h2e, h2e)
 
-        def sigma(c):
-            with stage("fci sigma", device, **attrs):
-                return _sigma_rhf(h2e, c, links_a, links_b, norb)
+        def plain(c):
+            return _sigma_rhf(h2e, c, links_a, links_b, norb)
     else:
         h1 = tuple(as_f64(x, device) for x in h1e)
         g = tuple(as_f64(x, device) for x in eri)
-        ha, hab, hb = absorb_h1e_uhf(h1, g, norb, nea + neb)
+        blocks = absorb_h1e_uhf(h1, g, norb, nea + neb)
         hdiag = make_hdiag(h1, g, norb, nelec)
 
-        def sigma(c):
-            with stage("fci sigma", device, **attrs):
-                return _sigma_uhf(ha, hab, hb, c, links_a, links_b, norb)
+        def plain(c):
+            return _sigma_uhf(*blocks, c, links_a, links_b, norb)
+    apply = FciSigma(*blocks, norb, nelec, device, plain)
+
+    def sigma(c):
+        with stage("fci sigma", device, **attrs):
+            return apply(c)
     return sigma, hdiag
 
 
