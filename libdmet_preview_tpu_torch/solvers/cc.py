@@ -30,6 +30,7 @@ import scipy.linalg as sla
 import torch
 
 from libdmet_preview_tpu_torch.utils import logger as log
+from libdmet_preview_tpu_torch.utils import timer
 from libdmet_preview_tpu_torch.utils.misc import as_f64
 from libdmet_preview_tpu_torch.utils.timer import stage
 from libdmet_preview_tpu_torch.solvers.scf import SCF, _s1_block
@@ -283,9 +284,10 @@ def _solve_amplitudes(h_so, W, nocc, tol=1e-9, max_cycle=100, diis_space=8,
     # lambda_sweeps is consumed by the adjoint solve (approximate-lambda
     # variants); it does not affect the amplitude fixed point
     """Preconditioned fixed point t <- t + R/D with DIIS, on the device of
-    h_so; one host read per iteration.  Returns (t1, t2, converged);
+    h_so; one host read per iteration, each counted as "cc amplitude
+    steps" (utils.timer).  Returns (t1, t2, converged);
     _solve_amplitudes.last holds the iterations and the final max|R| of
-    the latest call.
+    the latest call.  A max|R| that is not finite ends the iteration.
 
     freeze_t1=True solves CCD (singles pinned at zero).
     ite_dtau: imaginary-time-evolution update t <- t + dtau * R instead of
@@ -321,10 +323,13 @@ def _solve_amplitudes(h_so, W, nocc, tol=1e-9, max_cycle=100, diis_space=8,
                 s1, s2 = R1 / D1, R2 / D2
             (t1, t2), (rnorm,) = diis.update([t1 + s1, t2 + s2], [s1, s2],
                                              scalars=(rn,))
+            timer.count("cc amplitude steps")
             log.debug(1, "CC amplitudes: iteration %3d max|R| = %.3e",
                       it, rnorm)
             if rnorm < tol:
                 conv = True
+                break
+            if not np.isfinite(rnorm):
                 break
     if not conv:
         log.warn("CCSD amplitudes not converged: max|R| = %.3e", rnorm)
@@ -414,7 +419,8 @@ def _solve_adjoint(h_so, W, nocc, t1, t2, w1, w2, tol=1e-9, max_cycle=100,
     matvec.  DIIS-accelerated Richardson on the Jacobi-preconditioned
     operator, on the device; then, only if it stalls, GMRES, a min-norm
     least-squares LSMR and (small systems) a dense solve, through scipy on
-    the host.  _solve_adjoint.last holds the matvecs, the final relative
+    the host.  Each operator application counts one "cc adjoint matvecs"
+    (utils.timer).  _solve_adjoint.last holds the matvecs, the final relative
     residual and the branch that ended the latest call.
 
     lambda_sweeps: if set, do that many Jacobi-preconditioned Richardson
@@ -440,6 +446,7 @@ def _solve_adjoint(h_so, W, nocc, t1, t2, w1, w2, tol=1e-9, max_cycle=100,
 
     def A(x):
         count["matvec"] += 1
+        timer.count("cc adjoint matvecs")
         g1, g2 = matvec(*split(x))
         return torch.cat([g1.reshape(-1), g2.reshape(-1)])
 
@@ -919,9 +926,19 @@ class CCSD(object):
         val = self.__class__.energy_fn(*blocks, as_f64(Ca, self.device),
                                        as_f64(Cb, self.device), na, nb, opts,
                                        *extra)
+        E = float(val.detach()) + float(Ham.H0)
+        if not np.isfinite(E):
+            # NaN densities would reach the dmu search and fail later, in
+            # an eigensolver far from the cause
+            scf = self.scfsolver
+            raise RuntimeError(
+                "%s: the energy is not finite, because %s" % (
+                    type(self).__name__,
+                    "the reference SCF did not converge"
+                    if scf is not None and not scf.converged
+                    else "the amplitudes diverged"))
         with stage("CC gradient (adjoint and vjp inside)", self.device):
             grads = torch.autograd.grad(val, blocks)
-        E = float(val.detach()) + float(Ham.H0)
         gh1a, gh1b, gg_aa, gg_bb, gg_ab = grads
         del grads, blocks, val
 

@@ -9,7 +9,10 @@ the solver's device; the tiny n x n steps around them (generalized eigh,
 DIIS, aufbau densities) run on the host in NumPy, as in the JAX package.
 The orbital-rotation minimization takes its gradient from torch.autograd
 through torch.linalg.matrix_exp on the device and steps with scipy's BFGS
-on the host: one device-to-host read per energy evaluation.
+on the host: one device-to-host read per energy evaluation.  The embedded
+HF counts "scf roothaan steps" (one per Roothaan iteration) and "scf
+rotation steps" (one per energy evaluation of the rotation minimization)
+through utils.timer.
 """
 
 import numpy as np
@@ -17,6 +20,7 @@ import scipy.linalg as sla
 import torch
 
 from libdmet_preview_tpu_torch.utils import logger as log
+from libdmet_preview_tpu_torch.utils import timer
 from libdmet_preview_tpu_torch.utils.misc import as_f64, host_blas_threads
 from libdmet_preview_tpu_torch.ops.diis import DIIS
 from libdmet_preview_tpu_torch.models.integral import Integral, restore_eri
@@ -81,7 +85,9 @@ class SCF(object):
         self.e_tot = None
         self.rdm1 = None
         self.converged = False
+        self.cycles = 0            # Roothaan iterations of the last HF
         self.oo_iterations = []    # BFGS iterations of each rotation solve
+        self.oo_evaluations = []   # and its energy evaluations
 
     def set_system(self, nelec, spin, bogoliubov, restricted):
         assert not bogoliubov, "use HFB path for Bogoliubov"
@@ -156,6 +162,7 @@ class SCF(object):
                           + torch.sum((2 * h1b + vb) * dmb))
 
         def fun(p):
+            timer.count("scf rotation steps")
             pt = self._dev(p).requires_grad_(True)
             E = energy(pt)
             (g,) = torch.autograd.grad(E, pt)
@@ -169,6 +176,7 @@ class SCF(object):
                               options={"gtol": max(tol * 10, 1e-9),
                                        "maxiter": 2000})
         self.oo_iterations.append(int(res.nit))
+        self.oo_evaluations.append(int(res.nfev))
         p = res.x
         Ka = _host(unpack(self._dev(p[:nrot])))
         Kb = Ka if same_spin else _host(unpack(self._dev(p[nrot:])))
@@ -223,6 +231,8 @@ class SCF(object):
         wa = wb = None
         ca = cb = None
         for it in range(MaxIter):
+            timer.count("scf roothaan steps")
+            self.cycles = it + 1
             Fa, Fb = self._fock(dm, h1, eris)
             if restricted:
                 Fb = Fa = 0.5 * (Fa + Fb)
